@@ -9,20 +9,27 @@ non-zero, printing no result, when there is none or when any phase fails:
 
 1. build every kernel (one nvcc per source, in parallel) and name the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, in float32 and bfloat16, and time the kernel, the
-   plain version and one PyTorch library call of the same function;
+   main paths' shapes plus ragged and edge cases, in float32 and bfloat16,
+   and time the kernel, the plain version and one PyTorch library call of
+   the same function where one exists;
 3. the main path: DSGD-AAU at N=256 with the full 2-NN through the bucketed
    active-set path (``sparse_scan``, rungs 16/64/256), 1024 events, with the
    kernels' launch counters set to 0 just before and read just after;
 4. the dense path: synchronous DSGD at N=256 through the dense scan, 160
    events, counters likewise;
 5. card vs CPU: DSGD-AAU at N=64 on both from the same W0;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+6. the serve path: RecurrentGemma-2B at full width in bfloat16 (random
+   weights from a seeded generator) behind ``BatchedServer``, 4 slots, 8
+   requests of 512-4096 prompt tokens in 2 waves, 32 new tokens each, with
+   the counters set to 0 before each wave and read after it;
+7. card vs CPU: the reduced RecurrentGemma on both from the same weights;
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,6 +47,10 @@ TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
 D_LEAVES = (16384, 65536, 256, 2560, 10)   # the 2-NN's leaf widths
 N_MAIN = 256
 A_RUNGS = (16, 64, 256)
+ARCH = "recurrentgemma-2b"
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
+SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
+SWA_MAIN = (4, 4096, 10, 1, 256, 2048)     # B, T, H, KV, dh, window
 
 
 def fail(msg: str) -> None:
@@ -220,6 +231,96 @@ def check_kernels(device) -> dict:
     return rows
 
 
+def band_pairs(T: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention with this window."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def check_sequence_kernels(device) -> list:
+    """linear_scan and swa_attention against their plain versions: main
+    shapes, ragged T and widths, decays 0 and 1, windows 1 to past T, MQA
+    and plain heads, head widths 64 and 256."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for dname, dt in dts.items():
+        for B, T, W in [(1, 1, 100), (1, 1, 2560), (4, 100, 100),
+                        (4, 100, 2560), (4, 4096, 100), SCAN_MAIN]:
+            for kind in ("gate", "zero", "one"):
+                shape = (B, T, W)
+                a = {"gate": 0.36 + 0.64 * torch.rand(shape, generator=gen),
+                     "zero": torch.zeros(shape),
+                     "one": torch.ones(shape)}[kind].to(device, dt)
+                x = torch.randn(shape, generator=gen)
+                if kind == "one":
+                    # a running sum: scaled to stay O(1), where the float32
+                    # tolerance holds (a chunked and a sequential sum round
+                    # apart by a few ulps of the partial sums)
+                    x = x / math.sqrt(T)
+                x = x.to(device, dt)
+                out = scan_ops.linear_scan_cuda(a, x)
+                ref = scan_ops.linear_scan_plain(a, x)
+                torch.cuda.synchronize()
+                row = dict(kernel="linear_scan", dtype=dname, B=B, T=T, W=W,
+                           decay=kind, max_abs_err=close(out, ref, dname))
+                n = B * T * W
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    3 * n * x.element_size(), 2.0 * n, dname)
+                if (B, T, W) == SCAN_MAIN and kind == "gate":
+                    row.update(
+                        ms=time_ms(lambda: scan_ops.linear_scan_cuda(a, x), 50),
+                        plain_ms=time_ms(lambda: scan_ops.linear_scan_plain(a, x), 2),
+                        library_ms=None)
+                rows.append(row)
+        for T in (1, 100, 4096):
+            for window in (1, 64, 2048, T + 1):
+                for groups in (1, 10):
+                    for dh in (64, 256):
+                        rows.append(_swa_case(swa_ops, gen, device, dname, dt,
+                                              1, T, groups, 1, dh, window))
+        rows.append(_swa_case(swa_ops, gen, device, dname, dt, *SWA_MAIN,
+                              timed=True))
+    return rows
+
+
+def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
+              timed=False):
+    import torch
+    import torch.nn.functional as F
+    q = torch.randn(B * H, T, dh, generator=gen).to(device, dt)
+    k = torch.randn(B * KV, T, dh, generator=gen).to(device, dt)
+    v = torch.randn(B * KV, T, dh, generator=gen).to(device, dt)
+    g = H // KV
+    out = swa_ops.swa_attention_cuda(q, k, v, window=window, n_groups=g)
+    ref = swa_ops.swa_attention_plain(q, k, v, window=window, n_groups=g)
+    torch.cuda.synchronize()
+    row = dict(kernel="swa_attention", dtype=dname, B=B, T=T, H=H, KV=KV,
+               dh=dh, window=window, max_abs_err=close(out, ref, dname))
+    s = q.element_size()
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        (2 * q.numel() + 2 * k.numel()) * s,
+        4.0 * B * H * band_pairs(T, window) * dh, dname)
+    if timed:
+        pos = torch.arange(T, device=device)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        q4 = q.reshape(B, H, T, dh)
+        k4 = k.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
+        v4 = v.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
+        row.update(
+            ms=time_ms(lambda: swa_ops.swa_attention_cuda(
+                q, k, v, window=window, n_groups=g), 5),
+            plain_ms=time_ms(lambda: swa_ops.swa_attention_plain(
+                q, k, v, window=window, n_groups=g), 2),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=band), 5))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the trainer
 # ---------------------------------------------------------------------------
@@ -237,20 +338,25 @@ def paper_spec(**kw):
     return ExperimentSpec(**base)
 
 
-def reset_counts():
+def _counted() -> dict:
     from repro_torch.kernels.gossip_mix import ops as gossip_ops
+    from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.kernels.sparse_gossip import ops as sparse_ops
-    for fn in (gossip_ops.masked_gossip_cuda, sparse_ops.sparse_gossip_cuda,
-               sparse_ops.scatter_rows_cuda):
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    return {"masked_gossip": gossip_ops.masked_gossip_cuda,
+            "sparse_gossip": sparse_ops.sparse_gossip_cuda,
+            "scatter_rows": sparse_ops.scatter_rows_cuda,
+            "linear_scan": scan_ops.linear_scan_cuda,
+            "swa_attention": swa_ops.swa_attention_cuda}
+
+
+def reset_counts():
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.gossip_mix import ops as gossip_ops
-    from repro_torch.kernels.sparse_gossip import ops as sparse_ops
-    return {"masked_gossip": gossip_ops.masked_gossip_cuda.launches,
-            "sparse_gossip": sparse_ops.sparse_gossip_cuda.launches,
-            "scatter_rows": sparse_ops.scatter_rows_cuda.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def drive(trainer, max_events: int, eval_every: int):
@@ -277,6 +383,142 @@ def check_history(res, what: str):
                 f"{what}: non-finite eval {p}")
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the serve path
+# ---------------------------------------------------------------------------
+
+def serve_requests(vocab: int):
+    """8 requests, prompt lengths drawn from 512-4096 by
+    ``default_rng(0)``; the longest are dealt to alternate waves, so each
+    wave's padded length passes the 2048 window."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 4097, size=SERVE_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, size=n).astype(np.int32),
+                    max_new=SERVE_NEW) for i, n in enumerate(lens)]
+    order = np.argsort(-lens, kind="stable")
+    n_waves = SERVE_REQUESTS // SERVE_SLOTS
+    return [[reqs[i] for i in order[w::n_waves]] for w in range(n_waves)]
+
+
+def serve_full_width(device, build_s: float) -> dict:
+    """Phase 6: RecurrentGemma-2B at full width behind BatchedServer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import decode_step, init_model, prefill
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=device).manual_seed(0), device)
+    n_params = sum(p.numel() for p in model.parameters())
+    waves = serve_requests(cfg.vocab_size)
+    cache_len = max(len(r.prompt) for w in waves for r in w) + SERVE_NEW
+    server = BatchedServer(cfg, model, SERVE_SLOTS, cache_len)
+    # warm-up wave (first cuBLAS and allocator use), counted as set-up
+    server.run([Request(rid=-1, prompt=waves[0][0].prompt[:256], max_new=2)])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    print(f"[6] {ARCH}: {n_params:,} parameters in {cfg.param_dtype}; set-up "
+          f"{build_s + setup:.2f} s (build {build_s:.2f}, init and warm-up "
+          f"{setup:.2f}); cache_len {cache_len}")
+    torch.cuda.reset_peak_memory_stats(device)
+    launches = {"linear_scan": 0, "swa_attention": 0}
+    n_rec = sum(1 for pt in cfg._pattern_expanded() if pt == "rec")
+    n_attn = cfg.n_layers - n_rec
+    for w, wave in enumerate(waves):
+        reset_counts()
+        server.run(wave)
+        counts = read_counts()
+        st = server.stats[-1]
+        print(f"[6] wave {w}: batch {st.batch}, prompts "
+              f"{[len(r.prompt) for r in wave]} padded to {st.padded_len}")
+        print(f"[6] wave {w}: time to first token {st.first_token_s:.4f} s")
+        print(f"[6] wave {w}: prefill {st.prompt_tokens / st.first_token_s:.1f} "
+              f"prompt tok/s ({st.batch * st.padded_len / st.first_token_s:.1f} "
+              f"with padding)")
+        print(f"[6] wave {w}: decode {st.batch * st.decode_steps / st.decode_s:.1f} "
+              f"tok/s ({st.decode_steps} steps in {st.decode_s:.4f} s)")
+        print(f"[6] wave {w}: launches {counts}")
+        require(st.padded_len > cfg.attn_window,
+                f"wave {w} is not longer than the window")
+        require(counts["linear_scan"] == n_rec and counts["swa_attention"] == n_attn,
+                f"wave {w} launched {counts}, not {n_rec} linear_scan and "
+                f"{n_attn} swa_attention")
+        for k in launches:
+            launches[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated(device)
+    reqs = [r for w in waves for r in w]
+    n_out = sum(len(r.out) for r in reqs)
+    print(f"[6] {n_out} tokens for {len(reqs)} requests")
+    print(f"[6] max_memory_allocated {peak / 2**30:.2f} GiB")
+    require(n_out == SERVE_REQUESTS * SERVE_NEW and all(
+        len(r.out) == SERVE_NEW and r.done for r in reqs), "tokens missing")
+    # the first wave again through the model's entry points: finite logits
+    # and the server's first two greedy tokens
+    wave = waves[0]
+    T = max(len(r.prompt) for r in wave)
+    toks = torch.zeros((len(wave), T), dtype=torch.int64)
+    for j, r in enumerate(wave):
+        toks[j, T - len(r.prompt):] = torch.from_numpy(r.prompt)
+    logits, state = prefill(model, cfg, toks.to(device), cache_len)
+    cur = logits.argmax(-1)
+    logits2, _ = decode_step(model, cfg, cur, state, T)
+    require(bool(torch.isfinite(logits).all() and torch.isfinite(logits2).all()),
+            "non-finite logits")
+    require(cur.tolist() == [r.out[0] for r in wave]
+            and logits2.argmax(-1).tolist() == [r.out[1] for r in wave],
+            "prefill/decode_step disagree with the server's tokens")
+    ttft = [s.first_token_s for s in server.stats[1:]]
+    return dict(launches=launches, peak_bytes=peak, ttft=ttft,
+                prefill_tok_s=sum(s.prompt_tokens for s in server.stats[1:]) / sum(ttft),
+                decode_tok_s=sum(s.batch * s.decode_steps for s in server.stats[1:])
+                / sum(s.decode_s for s in server.stats[1:]))
+
+
+def serve_card_vs_cpu(device) -> None:
+    """Phase 7: the reduced RecurrentGemma (float32) on the card and on the
+    CPU from the same weights: logits of every step within 1e-4 and the
+    same greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import decode_step, init_model, prefill
+
+    cfg = get_config(ARCH).reduced()
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_model(cfg, None, device=device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in rng.integers(65, 201, size=6)]
+    T = max(len(p) for p in prompts[:4])
+    toks = torch.zeros((4, T), dtype=torch.int64)
+    for j, p in enumerate(prompts[:4]):
+        toks[j, T - len(p):] = torch.from_numpy(p)
+    lg, sg = prefill(card, cfg, toks.to(device), T + 16)
+    lc, sc = prefill(cpu, cfg, toks, T + 16)
+    err = float((lg.cpu() - lc).abs().max())
+    for i in range(15):
+        tok = lc.argmax(-1)
+        require(torch.equal(lg.argmax(-1).cpu(), tok), f"step {i}: tokens differ")
+        lg, sg = decode_step(card, cfg, tok.to(device), sg, T + i)
+        lc, sc = decode_step(cpu, cfg, tok, sc, T + i)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    outs = []
+    for model in (card, cpu):
+        reqs = [Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(prompts)]
+        BatchedServer(cfg, model, 4, 216).run(reqs)
+        outs.append([r.out for r in reqs])
+    print(f"[7] {cfg.name} card vs CPU: prompts {[len(p) for p in prompts]} "
+          f"(window {cfg.attn_window}); max |logits| err over prefill and 15 "
+          f"decode steps {err:.3e}; server tokens identical: {outs[0] == outs[1]}")
+    require(err <= 1e-4, f"card and CPU logits disagree by {err}")
+    require(outs[0] == outs[1], "card and CPU greedy tokens differ")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -298,8 +540,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     logs = build.build()
-    print(f"[1] built {', '.join(build.SOURCES)} for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    print(f"[1] built {', '.join(build.SOURCES)} for sm_90a in {build_s:.1f} s")
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -307,7 +549,7 @@ def main() -> int:
 
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
-    rows = check_kernels(device)
+    rows = check_kernels(device) + check_sequence_kernels(device)
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
@@ -379,25 +621,43 @@ def main() -> int:
             "card and CPU totals differ")
     require(bool(torch.equal(tg._ptr.cpu(), tc._ptr)), "ptr differs")
 
-    # -- 6. summary ----------------------------------------------------------
+    # -- 6. serve path: RecurrentGemma-2B at full width ---------------------
+    served = serve_full_width(device, build_s)
+
+    # -- 7. card vs CPU: the reduced RecurrentGemma -------------------------
+    serve_card_vs_cpu(device)
+
+    # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "sparse_gossip": counts_sparse["sparse_gossip"],
-                "scatter_rows": counts_sparse["scatter_rows"]}
+                "scatter_rows": counts_sparse["scatter_rows"],
+                **served["launches"]}
+    B, T, W = SCAN_MAIN
+    _, _, H, KV, dh, window = SWA_MAIN
+    gossip = dict(dtype="float32", N=N_MAIN, D=65536)
+    # kernel -> (source, TPU kernel it replaces, the timed row of phase 2)
     meta = {
         "masked_gossip": ("src/repro_torch/csrc/masked_gossip.cu",
                           "src/repro/kernels/gossip_mix/kernel.py:76",
-                          dict(A=None)),
+                          dict(gossip, A=None)),
         "sparse_gossip": ("src/repro_torch/csrc/sparse_gossip.cu",
                           "src/repro/kernels/sparse_gossip/kernel.py:61",
-                          dict(A=64, lanes="full")),
+                          dict(gossip, A=64, lanes="full")),
         "scatter_rows": ("src/repro_torch/csrc/scatter_rows.cu",
                          "src/repro/kernels/sparse_gossip/kernel.py:117",
-                         dict(A=64, lanes="full")),
+                         dict(gossip, A=64, lanes="full")),
+        "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
+                        "src/repro/kernels/linear_scan/kernel.py:43",
+                        dict(dtype="float32", B=B, T=T, W=W, decay="gate")),
+        "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
+                          "src/repro/kernels/swa_attention/kernel.py:71",
+                          dict(dtype="bfloat16", B=B, T=T, H=H, KV=KV, dh=dh,
+                               window=window)),
     }
     kernels = []
     for kname, (source, replaces, sel) in meta.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        at = [r for r in mine if r["dtype"] == "float32" and r["D"] == 65536
+        at = [r for r in mine if "ms" in r
               and all(r.get(k) == v for k, v in sel.items())][0]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
@@ -409,11 +669,14 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
-            "shape": {"N": at["N"], "A": at["A"], "D": at["D"],
-                      "dtype": "float32"},
+            "shape": sel,
         })
-    print(f"[6] main path events/s: dsgd_aau N=256 sparse_scan {eps_sparse:.1f}, "
-          f"dsgd_sync N=256 scan {res_d.total_events / wall_d:.1f}; "
+    print(f"[8] main path events/s: dsgd_aau N=256 sparse_scan {eps_sparse:.1f}, "
+          f"dsgd_sync N=256 scan {res_d.total_events / wall_d:.1f}; serve "
+          f"{ARCH}: prefill {served['prefill_tok_s']:.1f} prompt tok/s, time to "
+          f"first token {', '.join(f'{t:.4f}' for t in served['ttft'])} s, "
+          f"decode {served['decode_tok_s']:.1f} tok/s, peak "
+          f"{served['peak_bytes'] / 2**30:.2f} GiB; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

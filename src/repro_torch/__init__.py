@@ -13,12 +13,15 @@ asking for CUDA on a machine without it raises.
 
 Float32 matrix products stay in full float32 on the card: parity with the
 reference is held at float32 tolerances, which TF32 (about three decimal
-digits) would break.  Both switches are set here, once, for the process.
+digits) would break.  bfloat16 products reduce in float32 (no split-K
+reduction in bf16), as the reference's ``preferred_element_type=float32``.
+The switches are set here, once, for the process.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from repro_torch.device import resolve_device  # noqa: E402
 

@@ -1,0 +1,6 @@
+from repro_torch.kernels.linear_scan.ops import (linear_scan, linear_scan_cuda,
+                                                linear_scan_plain)
+from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+__all__ = ["linear_scan", "linear_scan_cuda", "linear_scan_plain",
+           "linear_scan_ref"]

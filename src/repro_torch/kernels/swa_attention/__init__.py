@@ -1,0 +1,7 @@
+from repro_torch.kernels.swa_attention.ops import (swa_attention,
+                                                  swa_attention_cuda,
+                                                  swa_attention_plain)
+from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+
+__all__ = ["swa_attention", "swa_attention_cuda", "swa_attention_plain",
+           "swa_attention_ref"]

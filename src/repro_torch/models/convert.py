@@ -1,0 +1,52 @@
+"""Carry a language model's weights over from the reference.
+
+``lm_params_from_numpy`` takes the reference's ``init_model`` pytree with
+its leaves fetched to the host as NumPy arrays (nested dicts; the hybrid
+family's layers a tuple, indexed ``layers.{i}``) and returns the port's
+model holding the same values, so both packages compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models.transformer import LM, init_model
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def lm_params_from_numpy(tree: Any, cfg: ModelConfig,
+                         device: DeviceLike = "cuda") -> LM:
+    """The port's model on ``device`` with the pytree's weights.
+
+    Keys and shapes must match the port's exactly (a missing, extra or
+    mis-shaped leaf raises); values are cast to the config's param dtype.
+    """
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    model = init_model(cfg, None, device)
+    own = model.state_dict()
+    if set(flat) != set(own):
+        raise KeyError(f"pytree and model disagree: only in the pytree "
+                       f"{sorted(set(flat) - set(own))}, only in the model "
+                       f"{sorted(set(own) - set(flat))}")
+    for k, t in own.items():
+        if tuple(flat[k].shape) != tuple(t.shape):
+            raise ValueError(f"{k}: pytree shape {flat[k].shape} != model "
+                             f"shape {tuple(t.shape)}")
+    model.load_state_dict({k: torch.from_numpy(np.array(
+        flat[k], dtype=np.float32)).to(own[k].dtype) for k in own})
+    return model

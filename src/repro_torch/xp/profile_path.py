@@ -27,7 +27,7 @@ def _spec(n: int):
                           ref_max_events=160, eval_every=10, ref_eval_every=2)
 
 
-def _busy_ms(prof) -> float:
+def device_busy_ms(prof) -> float:
     """Device time covered by at least one kernel or copy (union of spans)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
         tr.run(max_events=args.events, eval_every=eval_every)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t1
-    busy = _busy_ms(prof)
+    busy = device_busy_ms(prof)
 
     pr = cProfile.Profile()
     pr.enable()

@@ -7,13 +7,21 @@ Every test here needs a CUDA device and nvcc; without one each test skips
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (float32 atol 2e-5 / rtol 1e-4, bfloat16 2e-2; the scatter is an
-exact copy), and a short trainer run on the card against the same run on
-the CPU from the same W0.
+exact copy), a short trainer run on the card against the same run on the
+CPU from the same W0, and the reduced RecurrentGemma on the card against
+the same weights on the CPU (logits within 1e-4, identical greedy tokens).
 """
 import pytest
 import torch
 
+import numpy as np
+
+from repro_torch.configs import get_config
 from repro_torch.kernels.gossip_mix import ops as gossip_ops
+from repro_torch.kernels.linear_scan import ops as scan_ops
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 from repro_torch.kernels.sparse_gossip import ops as sparse_ops
 from repro_torch.xp import ExperimentSpec, build_trainer, mlp2nn_init
 
@@ -130,3 +138,83 @@ def test_trainer_on_the_card_matches_the_cpu(cuda, alg, mode, n, dtype):
         assert (p.k, p.time, p.comm_param_copies) == (q.k, q.time,
                                                       q.comm_param_copies)
         assert abs(p.loss - q.loss) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tn,W,kind", [
+    (1, 1, 100, "gate"), (2, 100, 2560, "gate"), (4, 4096, 2560, "gate"),
+    (3, 777, 100, "zero"), (2, 1000, 33, "one")])
+def test_linear_scan_kernel_matches_plain(cuda, B, Tn, W, kind, dt):
+    g = torch.Generator().manual_seed(B + Tn + W)
+    a = {"gate": 0.36 + 0.64 * torch.rand(B, Tn, W, generator=g),
+         "zero": torch.zeros(B, Tn, W), "one": torch.ones(B, Tn, W)}[kind]
+    x = torch.randn(B, Tn, W, generator=g)
+    if kind == "one":   # a running sum: keep it O(1), where the tolerance holds
+        x = x / Tn ** 0.5
+    a, x = a.to(cuda, dt), x.to(cuda, dt)
+    before = scan_ops.linear_scan_cuda.launches
+    out = scan_ops.linear_scan(a, x)
+    assert scan_ops.linear_scan_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    _close(out, scan_ops.linear_scan_plain(a, x), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tn,H,KV,dh,w", [
+    (1, 1, 1, 1, 64, 1), (1, 100, 10, 1, 256, 64), (2, 257, 4, 2, 128, 2048),
+    (1, 300, 2, 2, 64, 1), (1, 1030, 10, 1, 256, 500), (2, 64, 4, 1, 64, 64)])
+def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
+    g = torch.Generator().manual_seed(Tn + w)
+    q = torch.randn(B, Tn, H, dh, generator=g).to(cuda, dt)
+    k = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, dt)
+    v = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, dt)
+    before = swa_ops.swa_attention_cuda.launches
+    out = swa_ops.swa_attention(q, k, v, window=w)
+    assert swa_ops.swa_attention_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    flat = [t.transpose(1, 2).reshape(B * t.shape[2], Tn, dh) for t in (q, k, v)]
+    ref = swa_ops.swa_attention_plain(*flat, window=w, n_groups=H // KV)
+    _close(out, ref.reshape(B, H, Tn, dh).transpose(1, 2), dt)
+
+
+def test_sequence_kernels_refuse_what_they_cannot_launch(cuda):
+    x = torch.zeros(1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        swa_ops.swa_attention_cuda(x, x, x, window=4)
+    y = torch.zeros(1, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        swa_ops.swa_attention_cuda(y, y, y, window=0)
+    with pytest.raises(TypeError, match="dtype"):
+        scan_ops.linear_scan_cuda(y.double(), y.double())
+
+
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
+    """Same weights on both: prefill past the window and 6 decode steps,
+    logits within 1e-4; the server's greedy tokens identical; each prefill
+    launches one kernel per sequence layer."""
+    cfg = get_config("recurrentgemma-2b").reduced()
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = T.init_model(cfg, None, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                             size=(3, 150)))
+    scans, swas = scan_ops.linear_scan_cuda.launches, swa_ops.swa_attention_cuda.launches
+    lg, st = T.prefill(card, cfg, toks.to(cuda), 160)
+    assert (scan_ops.linear_scan_cuda.launches - scans,
+            swa_ops.swa_attention_cuda.launches - swas) == (2, 1)
+    lc, sc = T.prefill(cpu, cfg, toks, 160)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for i in range(6):
+        lg, st = T.decode_step(card, cfg, tok.to(cuda), st, 150 + i)
+        lc, sc = T.decode_step(cpu, cfg, tok, sc, 150 + i)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    prompts = [np.random.default_rng(i).integers(1, cfg.vocab_size, size=n)
+               for i, n in enumerate((70, 130, 9, 100, 66))]
+    outs = []
+    for model in (card, cpu):
+        reqs = [serve.Request(i, p, 8) for i, p in enumerate(prompts)]
+        serve.BatchedServer(cfg, model, 4, 140).run(reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]

@@ -25,6 +25,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = list(_modules())
     assert "repro_torch.core.runner" in mods and "repro_torch.xp.builders" in mods
+    assert "repro_torch.launch.serve" in mods
+    assert "repro_torch.models.transformer" in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -1,4 +1,4 @@
-"""The port's gossip kernels against the JAX package's, on the CPU.
+"""The port's kernels against the JAX package's, on the CPU.
 
 Inputs are drawn once with NumPy and fed to both packages.  On CPU tensors
 the port's wrappers run their plain PyTorch versions (the CUDA kernels run
@@ -8,6 +8,7 @@ and against its Pallas ops run in interpret mode.  Tolerances are
 ``tests/test_kernels.py:_tol``'s: float32 atol 2e-5 / rtol 1e-4 (sums in a
 different order), bfloat16 2e-2 (one rounding of the output).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,13 +21,19 @@ from repro.kernels.sparse_gossip.ref import (
     sparse_gossip_apply_ref as jax_apply_ref,
     sparse_gossip_ref as jax_sparse_ref,
     sparse_scatter_rows_ref as jax_scatter_ref)
+from repro.kernels.linear_scan.ref import linear_scan_ref as jax_scan_ref
+from repro.kernels.swa_attention import ops as jax_swa_ops
+from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
+from repro.models.rglru import rglru_scan as jax_rglru_scan
 from repro_torch.kernels import build
 from repro_torch.kernels.gossip_mix import ops as gossip_ops
 from repro_torch.kernels.gossip_mix.ref import masked_gossip_ref
+from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.sparse_gossip import ops as sparse_ops
 from repro_torch.kernels.sparse_gossip.ref import (sparse_gossip_apply_ref,
                                                   sparse_gossip_ref,
                                                   sparse_scatter_rows_ref)
+from repro_torch.kernels.swa_attention import ops as swa_ops
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -210,3 +217,106 @@ def test_build_names_a_content_hashed_library_per_source():
         assert (build.CSRC / f"{name}.cu").is_file()
     with pytest.raises(ValueError, match="unknown kernel"):
         build.build(["not_a_kernel"])
+
+
+# ---------------------------------------------------------------------------
+# linear_scan and swa_attention (the hybrid LM's sequence operators)
+# ---------------------------------------------------------------------------
+
+_jit_rglru_scan = jax.jit(jax_rglru_scan)
+_jit_swa_ref = jax.jit(jax_swa_ref, static_argnames=("window", "n_groups"))
+
+
+def _decays(rng, shape, kind):
+    """RG-LRU-like decays in [σ(2)^8, 1) (``gate``), or the edges 0 and 1."""
+    if kind == "zero":
+        return np.zeros(shape, np.float32)
+    if kind == "one":
+        return np.ones(shape, np.float32)
+    return (0.36 + 0.64 * rng.random(shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,T,W,kind", [
+    (1, 1, 7, "gate"), (2, 37, 64, "gate"), (3, 100, 33, "gate"),
+    (2, 64, 16, "zero"), (1, 80, 16, "one")])
+def test_linear_scan_plain_matches_reference(B, T, W, kind, dtype):
+    rng = np.random.default_rng(B * 1000 + T * 10 + W)
+    a = _decays(rng, (B, T, W), kind)
+    x = rng.normal(size=(B, T, W)).astype(np.float32)
+    (ja, ta), (jx, tx) = _both(a, dtype), _both(x, dtype)
+    out = scan_ops.linear_scan(ta, tx)
+    assert out.dtype == tx.dtype and out.shape == (B, T, W)
+    np.testing.assert_allclose(_f32(out), _f32(jax_scan_ref(ja, jx)),
+                               **_tol(dtype))
+    if kind == "zero":
+        np.testing.assert_array_equal(_f32(out), _f32(tx))
+
+
+@pytest.mark.parametrize("T", [200, 512])
+def test_linear_scan_plain_matches_rglru_scan(T):
+    """The reference's chunked associative scan (one tree for T <= 256,
+    chunks of 256 with a carried boundary for T = 512) against the port's
+    sequential plain version: another rounding order, float32 tolerance."""
+    rng = np.random.default_rng(T)
+    a = _decays(rng, (2, T, 48), "gate")
+    x = rng.normal(size=(2, T, 48)).astype(np.float32)
+    out = scan_ops.linear_scan(torch.as_tensor(a), torch.as_tensor(x))
+    ref = _jit_rglru_scan(jnp.asarray(a), jnp.asarray(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **_tol("float32"))
+
+
+SWA_CASES = [  # B, T, H, KV, dh, window
+    (1, 64, 2, 2, 16, 64),      # window = T
+    (2, 100, 4, 2, 16, 24),     # GQA 2, T not a tile multiple
+    (1, 96, 4, 1, 32, 1),       # MQA, window 1: each query sees itself
+    (1, 50, 2, 1, 8, 500),      # window well past T: causal attention
+    (2, 130, 8, 2, 16, 64),     # GQA 4, window < T
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,T,H,KV,dh,w", SWA_CASES)
+def test_swa_attention_plain_matches_reference(B, T, H, KV, dh, w, dtype):
+    rng = np.random.default_rng(T + w + dh)
+    q, k, v = (rng.normal(size=(B, T, n, dh)).astype(np.float32)
+               for n in (H, KV, KV))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(t, dtype) for t in (q, k, v))
+    out = swa_ops.swa_attention(tq, tk, tv, window=w)
+    assert out.shape == (B, T, H, dh) and out.dtype == tq.dtype
+    flat = [j.transpose(0, 2, 1, 3).reshape(B * j.shape[2], T, dh)
+            for j in (jq, jk, jv)]
+    ref = _jit_swa_ref(*flat, window=w, n_groups=H // KV)
+    ref = ref.reshape(B, H, T, dh).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_f32(out), _f32(ref), **_tol(dtype))
+    if w == 1:
+        np.testing.assert_allclose(
+            _f32(out), _f32(torch.repeat_interleave(tv, H // KV, dim=2)),
+            **_tol(dtype))
+
+
+def test_swa_attention_plain_matches_pallas_interpret():
+    """The port's public (B, T, H, dh) op against the reference's Pallas op
+    run in interpret mode, with ragged T and GQA."""
+    B, T, H, KV, dh, w = 1, 70, 4, 2, 16, 20
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(B, T, n, dh)).astype(np.float32)
+               for n in (H, KV, KV))
+    out = swa_ops.swa_attention(*(torch.as_tensor(t) for t in (q, k, v)),
+                                window=w)
+    ref = jax_swa_ops.swa_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                    window=w, block_q=32, block_k=32,
+                                    interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **_tol("float32"))
+
+
+@pytest.mark.parametrize("call", ["linear_scan", "swa_attention"])
+def test_sequence_kernel_wrappers_refuse_cpu_tensors(call):
+    x = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        if call == "linear_scan":
+            scan_ops.linear_scan_cuda(x, x)
+        else:
+            swa_ops.swa_attention_cuda(x, x, x, window=4)
+    assert scan_ops.linear_scan_cuda.launches == 0
+    assert swa_ops.swa_attention_cuda.launches == 0
