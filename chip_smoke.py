@@ -44,6 +44,10 @@ PEAK_FLOPS = {"float32": 67e12,     # CUDA cores (TF32 is off for parity)
               "bfloat16": 989e12}   # tensor cores
 TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# swa_attention's outputs are small (about sqrt(e / window) for unit q, k,
+# v: 0.03 at the main window), so its bfloat16 cases are held to a bound
+# set from that scale; one bf16 rounding apart stays within it
+SWA_TOL = dict(TOL, bfloat16=dict(atol=5e-3, rtol=1e-2))
 D_LEAVES = (16384, 65536, 256, 2560, 10)   # the 2-NN's leaf widths
 N_MAIN = 256
 A_RUNGS = (16, 64, 256)
@@ -93,12 +97,12 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
-def close(out, ref, dtype: str) -> float:
+def close(out, ref, dtype: str, tols: dict = TOL) -> float:
     """Max |out − ref|; fails unless within the dtype's tolerance."""
     import torch
     o, r = out.to(torch.float32), ref.to(torch.float32)
     err = float((o - r).abs().max()) if o.numel() else 0.0
-    tol = TOL[dtype]
+    tol = tols[dtype]
     if not torch.allclose(o, r, **tol):
         fail(f"kernel disagrees with its plain version: max abs err {err} "
              f"over tolerance {tol}")
@@ -300,7 +304,7 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
     ref = swa_ops.swa_attention_plain(q, k, v, window=window, n_groups=g)
     torch.cuda.synchronize()
     row = dict(kernel="swa_attention", dtype=dname, B=B, T=T, H=H, KV=KV,
-               dh=dh, window=window, max_abs_err=close(out, ref, dname))
+               dh=dh, window=window, max_abs_err=close(out, ref, dname, SWA_TOL))
     s = q.element_size()
     row["bound_ms"], row["bound_by"] = bound_ms(
         (2 * q.numel() + 2 * k.numel()) * s,

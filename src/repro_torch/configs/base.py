@@ -1,10 +1,12 @@
 """Architecture configuration of the port's language models.
 
-The port of the reference's ``repro/configs/base.py``: the same
-:class:`ModelConfig` fields, ``reduced()`` and registry, with torch dtypes.
-Each architecture is a module under ``repro_torch/configs/`` that registers
-its config on import; only the families the port runs are registered
-(``recurrentgemma-2b`` so far; the others come with their families).
+The port of the reference's ``repro/configs/base.py``: ``reduced()`` and
+the registry, with torch dtypes.  :class:`ModelConfig` holds only the
+reference's fields that the ported families read (the hybrid family so
+far); each later family adds its own, so a config cannot ask for an option
+the port would silently leave out.  Each architecture is a module under
+``repro_torch/configs/`` that registers its config on import
+(``recurrentgemma-2b`` so far).
 """
 from __future__ import annotations
 
@@ -19,40 +21,27 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    family: str                       # hybrid (the others are not ported)
     n_layers: int
     d_model: int
-    n_heads: int                      # 0 for attention-free (ssm)
+    n_heads: int
     n_kv_heads: int
     d_ff: int
     vocab_size: int
     d_head: int = 0                   # default d_model // n_heads
-    # --- MoE ---
-    n_experts: int = 0
-    top_k: int = 0
-    dense_residual_ff: int = 0
-    moe_capacity_factor: float = 1.25
-    moe_groups: int = 1
     # --- attention details ---
-    qk_norm: bool = False
     rope_theta: float = 10000.0
     attn_window: Optional[int] = None  # sliding-window attention (tokens)
     # --- hybrid (recurrentgemma) ---
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     rnn_width: int = 0                # RG-LRU state width (default d_model)
     conv_width: int = 4
-    # --- ssm (rwkv6) ---
-    rwkv_head_dim: int = 64
-    # --- multimodal stub frontend ---
-    frontend: Optional[str] = None
-    n_prefix_tokens: int = 0
     # --- misc ---
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     source: str = ""
-    notes: str = ""
 
     def __post_init__(self):
         if self.d_head == 0 and self.n_heads > 0:
@@ -93,15 +82,8 @@ class ModelConfig:
             d_head=d // heads if heads else 0,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
-            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
-            top_k=min(self.top_k, 2) if self.top_k else 0,
-            moe_groups=1,
-            dense_residual_ff=(min(self.dense_residual_ff, 256)
-                               if self.dense_residual_ff else 0),
             rnn_width=min(self.rnn_width, d) if self.rnn_width else 0,
             attn_window=min(self.attn_window, 64) if self.attn_window else None,
-            n_prefix_tokens=(min(self.n_prefix_tokens, 8)
-                             if self.n_prefix_tokens else 0),
             param_dtype="float32",
             compute_dtype="float32",
         )

@@ -15,5 +15,4 @@ CONFIG = register(ModelConfig(
     conv_width=4,
     attn_window=2048,       # Griffin local attention window
     source="arXiv:2402.19427 (Griffin / RecurrentGemma)",
-    notes="RG-LRU recurrence + 2048-window local attn; native long_500k",
 ))

@@ -1,15 +1,16 @@
 """Where the time of one serving wave goes, on the card.
 
-    python -m repro_torch.launch.profile_serve [--arch recurrentgemma-2b]
-        [--batch 4] [--prompt 3561] [--new 32] [--seed 0] [--out FILE]
+    python -m repro_torch.launch.profile_serve [--out FILE]
 
-Initialises the full-width model from a seeded generator, pays one-time
-costs with a short warm-up wave, then runs one wave (``--batch`` random
-prompts of ``--prompt`` tokens, ``--new`` greedy tokens) twice: once under
-the host clock, once under ``torch.profiler``.  The prefill and the decode
-steps are profiled as two windows; for each it reports the host-clock time,
-the device's busy and idle share of the window, the device time per kernel
-and the host time per operator.  Needs a CUDA device.
+Initialises the full-width recurrentgemma-2b from a seeded generator and
+serves ``chip_smoke.py``'s first wave (4 prompts of 3561, 2344, 1479 and
+658 tokens, left-padded to 3561; 32 greedy tokens each; a cache of 3593)
+through ``BatchedServer``: a short warm-up wave pays one-time costs, then
+the wave runs once under the host clock and once under ``torch.profiler``,
+the server's prefill and its decode steps as two windows.  For each window
+it reports the host-clock time, the device's busy and idle share, the
+device time per kernel and the host time per operator.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -17,41 +18,14 @@ import argparse
 import json
 import time
 
-
-def _wave(model, cfg, toks, cache_len: int, new: int) -> None:
-    """Prefill, then ``new - 1`` greedy decode steps, fetching each step's
-    tokens to the host as the server does."""
-    from repro_torch.models.transformer import decode_step, prefill
-    logits, state = prefill(model, cfg, toks, cache_len)
-    cur = logits.argmax(-1)
-    cur.tolist()
-    for i in range(new - 1):
-        logits, state = decode_step(model, cfg, cur, state, toks.shape[1] + i)
-        cur = logits.argmax(-1)
-        cur.tolist()
-
-
-def _window(prof, wall_s: float, top: int = 12) -> dict:
-    from repro_torch.xp.profile_path import device_busy_ms
-    busy = device_busy_ms(prof)
-    ka = prof.key_averages()
-    dev_rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:top]
-    host_rows = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:top]
-    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / (wall_s * 1e3),
-            "top_device_ms": [(e.key, e.count, e.self_device_time_total / 1e3)
-                              for e in dev_rows],
-            "top_host_ms": [(e.key, e.count, e.self_cpu_time_total / 1e3)
-                            for e in host_rows]}
+ARCH = "recurrentgemma-2b"
+PROMPTS = (3561, 2344, 1479, 658)   # chip_smoke.py's wave 0
+NEW = 32
+CACHE_LEN = 3561 + NEW
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="recurrentgemma-2b")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt", type=int, default=3561)
-    ap.add_argument("--new", type=int, default=32)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     args = ap.parse_args(argv)
 
@@ -60,44 +34,43 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import decode_step, init_model, prefill
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import init_model
+    from repro_torch.profiling import window_summary
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     dev = torch.device("cuda", 0)
-    cfg = get_config(args.arch)
-    model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
-    rng = np.random.default_rng(args.seed)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         size=(args.batch, args.prompt))).to(dev)
-    cache_len = args.prompt + args.new
-    _wave(model, cfg, toks[:, :256], 256 + args.new, 2)      # warm-up
-    torch.cuda.synchronize()
+    cfg = get_config(ARCH)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPTS]
 
-    t0 = time.perf_counter()
-    _wave(model, cfg, toks, cache_len, args.new)
-    wall = time.perf_counter() - t0
+    def wave():
+        return [Request(rid=i, prompt=p, max_new=NEW) for i, p in enumerate(prompts)]
+
+    server = BatchedServer(cfg, model, len(PROMPTS), CACHE_LEN)
+    server.run([Request(rid=-1, prompt=prompts[0][:256], max_new=2)])   # warm-up
+    server.run(wave())
+    st = server.stats[-1]
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    reqs = wave()
     with profile(activities=acts) as p_pre:
         t0 = time.perf_counter()
-        logits, state = prefill(model, cfg, toks, cache_len)
-        cur = logits.argmax(-1)
-        cur.tolist()
+        carry = server.prefill_wave(reqs)
         t_pre = time.perf_counter() - t0
     with profile(activities=acts) as p_dec:
         t0 = time.perf_counter()
-        for i in range(args.new - 1):
-            logits, state = decode_step(model, cfg, cur, state, args.prompt + i)
-            cur = logits.argmax(-1)
-            cur.tolist()
+        steps = server.decode_wave(reqs, *carry)
         t_dec = time.perf_counter() - t0
     summary = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name,
-        "batch": args.batch, "prompt": args.prompt, "new": args.new,
-        "wave_s": wall,
-        "prefill": _window(p_pre, t_pre),
-        "decode": dict(_window(p_dec, t_dec), steps=args.new - 1,
-                       ms_per_step=t_dec * 1e3 / (args.new - 1)),
+        "prompts": list(PROMPTS), "new": NEW,
+        "first_token_s": st.first_token_s, "decode_s": st.decode_s,
+        "prefill": window_summary(p_pre, t_pre, 12),
+        "decode": dict(window_summary(p_dec, t_dec, 12), steps=steps,
+                       ms_per_step=t_dec * 1e3 / steps),
     }
     print(json.dumps(summary, indent=1))
     if args.out:

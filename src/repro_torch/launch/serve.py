@@ -65,19 +65,33 @@ class BatchedServer:
 
     def _run_wave(self, wave: List[Request]) -> None:
         t0 = time.perf_counter()
-        B = len(wave)
+        cur, host, state, padded_len = self.prefill_wave(wave)
+        t1 = time.perf_counter()
+        steps = self.decode_wave(wave, cur, host, state, padded_len)
+        self.stats.append(WaveStats(
+            batch=len(wave), padded_len=padded_len,
+            prompt_tokens=sum(len(r.prompt) for r in wave),
+            first_token_s=t1 - t0, decode_s=time.perf_counter() - t1,
+            decode_steps=steps))
+
+    def prefill_wave(self, wave: List[Request]):
+        """Left-pad the wave's prompts with 0 and prefill them; returns the
+        first greedy tokens (on the card and on the host), the decode state
+        and the padded length."""
         max_len = max(len(r.prompt) for r in wave)
-        toks = np.zeros((B, max_len), np.int64)
+        toks = np.zeros((len(wave), max_len), np.int64)
         for j, r in enumerate(wave):
             toks[j, max_len - len(r.prompt):] = r.prompt   # left-pad with 0
         logits, state = prefill(self.model, self.cfg,
                                 torch.from_numpy(toks).to(self.device),
                                 self.cache_len)
         cur = torch.argmax(logits, -1)
+        return cur, cur.tolist(), state, max_len
+
+    def decode_wave(self, wave: List[Request], cur, host, state, pos: int) -> int:
+        """Greedy decode from ``prefill_wave``'s result until every request
+        has its tokens; returns the number of decode steps."""
         max_new = max(r.max_new for r in wave)
-        host = cur.tolist()
-        t1 = time.perf_counter()
-        pos = max_len
         for step in range(max_new):
             for j, r in enumerate(wave):
                 if step < r.max_new:
@@ -90,11 +104,7 @@ class BatchedServer:
             pos += 1
         for r in wave:
             r.done = True
-        self.stats.append(WaveStats(
-            batch=B, padded_len=max_len,
-            prompt_tokens=sum(len(r.prompt) for r in wave),
-            first_token_s=t1 - t0, decode_s=time.perf_counter() - t1,
-            decode_steps=max_new - 1))
+        return max_new - 1
 
 
 def main(argv=None) -> int:

@@ -18,7 +18,8 @@ every branch (the reference's ``_plain_attention`` and
 single-token decode against the rolling cache is plain PyTorch, as in the
 reference.  The reference's ``_SHARD_HINT`` is a TPU mesh hook for XLA's
 sharding propagation and is not ported, nor are the options the hybrid
-model never uses: qk-norm and (B, T) positions.
+model never uses: qk-norm (the port's config has no such field) and
+(B, T) positions.
 """
 from __future__ import annotations
 

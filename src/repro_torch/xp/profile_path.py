@@ -27,24 +27,6 @@ def _spec(n: int):
                           ref_max_events=160, eval_every=10, ref_eval_every=2)
 
 
-def device_busy_ms(prof) -> float:
-    """Device time covered by at least one kernel or copy (union of spans)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type.name == "CUDA" and e.time_range.end > 0)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--alg", default="dsgd_aau")
@@ -59,6 +41,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.profiling import window_summary
     from repro_torch.xp import build_trainer
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -79,7 +62,6 @@ def main(argv=None) -> int:
         tr.run(max_events=args.events, eval_every=eval_every)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t1
-    busy = device_busy_ms(prof)
 
     pr = cProfile.Profile()
     pr.enable()
@@ -87,19 +69,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     pr.disable()
 
-    ka = prof.key_averages()
-    dev_rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:15]
-    host_rows = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:15]
     summary = {
         "device": torch.cuda.get_device_name(0),
         "alg": args.alg, "n": args.n, "mode": tr.mode, "events": args.events,
         "events_per_s": args.events / wall,
-        "profiled_wall_ms": wall_prof * 1e3, "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / (wall_prof * 1e3),
-        "top_device_ms": [(e.key, e.count, e.self_device_time_total / 1e3)
-                          for e in dev_rows],
-        "top_host_ms": [(e.key, e.count, e.self_cpu_time_total / 1e3)
-                        for e in host_rows],
+        "profiled": window_summary(prof, wall_prof, 15),
     }
     print(json.dumps(summary, indent=1))
     s = io.StringIO()

@@ -63,8 +63,13 @@ def test_configs_match_the_reference(cfgs):
     for full in (True, False):
         mine = get_config(ARCH) if full else cfgs[0]
         ref = jax_get_config(ARCH) if full else cfgs[1]
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        ref_fields = dataclasses.asdict(ref)
+        shared = {k: ref_fields[k] for k in dataclasses.asdict(mine)}
+        assert dataclasses.asdict(mine) == shared
         assert mine._pattern_expanded() == ref._pattern_expanded()
+        # the reference's options the port has no field for are all off
+        assert (ref.qk_norm, ref.n_experts, ref.frontend, ref.n_prefix_tokens) == (
+            False, 0, None, 0)
     assert cfgs[0].cdtype == torch.float32
     assert get_config(ARCH).pdtype == torch.bfloat16
 
@@ -260,3 +265,7 @@ def test_other_families_are_not_ported_yet(cfgs):
         T.init_model(dense, None, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("qwen3-8b")
+    # an option of another family is no field of the port's config, so it
+    # cannot be set and silently left out
+    with pytest.raises(TypeError):
+        dataclasses.replace(cfgs[0], qk_norm=True)
