@@ -11,7 +11,8 @@ non-zero, printing no result, when there is none or when any phase fails:
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes plus ragged and edge cases, in float32 and bfloat16,
    and time the kernel, the plain version and one PyTorch library call of
-   the same function where one exists;
+   the same function where one exists (``gossip_mix`` and
+   ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32);
 3. the main path: DSGD-AAU at N=256 with the full 2-NN through the bucketed
    active-set path (``sparse_scan``, rungs 16/64/256), 1024 events, with the
    kernels' launch counters set to 0 just before and read just after;
@@ -23,8 +24,20 @@ non-zero, printing no result, when there is none or when any phase fails:
    requests of 512-4096 prompt tokens in 2 waves, 32 new tokens each, with
    the counters set to 0 before each wave and read after it;
 7. card vs CPU: the reduced RecurrentGemma on both from the same weights;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
-   final ``{"ok": true, "device": ...}`` line.
+9. the per-event path: DSGD-AAU at N=256 with the full 2-NN in
+   ``mode="per_event"`` (``gossip_mix`` per leaf per event), 256 events,
+   counters zeroed just before and read just after;
+10. two routes to eq. (5): DSGD-AAU at N=64 from one W0 in ``per_event``
+    (``gossip_mix``) and ``scan`` (``masked_gossip``) on the card, and
+    ``per_event`` on the CPU;
+11. the fused path: AD-PSGD and AGP at N=256 in ``mode="fused"``, 1024
+    events in blocks of 32, counters likewise; then fused on the card
+    against fused on the CPU at N=16;
+12. ``gossip_mix_batched`` on the system's own data: the (32, 64, 64)
+    consensus matrices of a DSGD-AAU ``EventBatch`` applied to 32 copies of
+    each trainer leaf, counters likewise, against ``gossip_mix_dense``;
+8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
+   limit, and the final ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -55,6 +68,10 @@ ARCH = "recurrentgemma-2b"
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
 SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
 SWA_MAIN = (4, 4096, 10, 1, 256, 2048)     # B, T, H, KV, dh, window
+MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 511, 4097, 65536)
+MIX_E = (1, 7, 32)
+MIX_MAIN = (256, 65536)                    # N, D of gossip_mix
+BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
 
 
 def fail(msg: str) -> None:
@@ -235,6 +252,67 @@ def check_kernels(device) -> dict:
     return rows
 
 
+def check_mix_kernels(device) -> list:
+    """gossip_mix and gossip_mix_batched against their plain versions over
+    ragged N, D and E, timed at the main shapes."""
+    import torch
+    from repro_torch.kernels.gossip_mix import ops as gossip_ops
+
+    gen = torch.Generator().manual_seed(2)
+    dgen = torch.Generator(device=device).manual_seed(2)   # W up to 2.1 GB
+    rows = []
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def stochastic(*lead, n):
+        P = torch.rand(*lead, n, n, generator=gen) + torch.eye(n)
+        return P / P.sum(-1, keepdim=True)
+
+    for dname, dt in dts.items():
+        s = torch.empty((), dtype=dt).element_size()
+        for N in MIX_N:
+            P = stochastic(n=N).to(device, dt)
+            for D in MIX_D:
+                W = torch.randn(N, D, generator=dgen, device=device).to(dt)
+                out = gossip_ops.gossip_mix_cuda(W, P)
+                ref = gossip_ops.gossip_mix_plain(W, P)
+                torch.cuda.synchronize()
+                row = dict(kernel="gossip_mix", dtype=dname, E=None, N=N, D=D,
+                           max_abs_err=close(out, ref, dname))
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    (2 * N * D + N * N) * s, 2.0 * N * N * D, dname)
+                if (N, D) == MIX_MAIN:
+                    row.update(
+                        ms=time_ms(lambda: gossip_ops.gossip_mix_cuda(W, P), 50),
+                        plain_ms=time_ms(lambda: gossip_ops.gossip_mix_plain(W, P), 20),
+                        library_ms=time_ms(lambda: torch.matmul(P.T, W), 50))
+                rows.append(row)
+                del W, out, ref
+        for E in MIX_E:
+            for N in MIX_N:
+                P = stochastic(E, n=N).to(device, dt)
+                for D in MIX_D:
+                    W = torch.randn(E, N, D, generator=dgen,
+                                    device=device).to(dt)
+                    out = gossip_ops.gossip_mix_batched_cuda(W, P)
+                    ref = gossip_ops.gossip_mix_batched_plain(W, P)
+                    torch.cuda.synchronize()
+                    row = dict(kernel="gossip_mix_batched", dtype=dname, E=E,
+                               N=N, D=D, max_abs_err=close(out, ref, dname))
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        E * (2 * N * D + N * N) * s, 2.0 * E * N * N * D, dname)
+                    if (E, N, D) == BATCHED_MAIN:
+                        Pt = P.transpose(1, 2)
+                        row.update(
+                            ms=time_ms(lambda: gossip_ops.gossip_mix_batched_cuda(
+                                W, P), 50),
+                            plain_ms=time_ms(lambda: gossip_ops.gossip_mix_batched_plain(
+                                W, P), 20),
+                            library_ms=time_ms(lambda: torch.bmm(Pt, W), 50))
+                    rows.append(row)
+                    del W, out, ref
+    return rows
+
+
 def band_pairs(T: int, window: int) -> int:
     """Unmasked (query, key) pairs of causal attention with this window."""
     w = min(window, T)
@@ -348,6 +426,8 @@ def _counted() -> dict:
     from repro_torch.kernels.sparse_gossip import ops as sparse_ops
     from repro_torch.kernels.swa_attention import ops as swa_ops
     return {"masked_gossip": gossip_ops.masked_gossip_cuda,
+            "gossip_mix": gossip_ops.gossip_mix_cuda,
+            "gossip_mix_batched": gossip_ops.gossip_mix_batched_cuda,
             "sparse_gossip": sparse_ops.sparse_gossip_cuda,
             "scatter_rows": sparse_ops.scatter_rows_cuda,
             "linear_scan": scan_ops.linear_scan_cuda,
@@ -523,6 +603,165 @@ def serve_card_vs_cpu(device) -> None:
     require(outs[0] == outs[1], "card and CPU greedy tokens differ")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12: the per-event and fused modes, and the batched mix
+# ---------------------------------------------------------------------------
+
+def state_err(a, b) -> float:
+    """Max |a − b| over two trainers' W, S and y (any devices)."""
+    err = 0.0
+    for x, y in [(a.W[k], b.W[k]) for k in a.W] + \
+                [(a.S[k], b.S[k]) for k in a.S] + [(a.y, b.y)]:
+        err = max(err, float((x.cpu().float() - y.cpu().float()).abs().max()))
+    return err
+
+
+def same_counters(ra, rb) -> bool:
+    """Event counts, virtual times and copies identical, history and totals."""
+    return (len(ra.history) == len(rb.history) and all(
+        (p.k, p.time, p.comm_param_copies) == (q.k, q.time, q.comm_param_copies)
+        for p, q in zip(ra.history, rb.history))
+        and (ra.total_events, ra.total_time, ra.total_comm_copies)
+        == (rb.total_events, rb.total_time, rb.total_comm_copies))
+
+
+def per_event_paths(device) -> dict:
+    """Phases 9 and 10: per_event at N=256, then per_event against the
+    dense scan on the card and against itself on the CPU at N=64."""
+    import torch
+    from repro_torch.xp import build_trainer, mlp2nn_init
+
+    tr = build_trainer(paper_spec(mode="per_event"), "dsgd_aau", N_MAIN, 0,
+                       device=device)
+    require(tr.mode == "per_event", f"per_event path took mode {tr.mode}")
+    res, setup, wall, counts = drive(tr, 256, 64)
+    check_history(res, "per_event dsgd_aau N=256")
+    eps = res.total_events / wall
+    print(f"[9] dsgd_aau N={N_MAIN} per_event: {res.total_events} events in "
+          f"{wall:.3f} s = {eps:.1f} events/s (set-up {setup:.2f} s); "
+          f"launches {counts}; loss {res.history[0].loss:.4f} -> "
+          f"{res.history[-1].loss:.4f}")
+    require(counts["gossip_mix"] > 0 and counts["masked_gossip"] == 0,
+            f"per_event must launch gossip_mix and no masked_gossip: {counts}")
+    require(res.history[-1].loss < res.history[0].loss,
+            "the loss did not fall on the per_event path")
+
+    w0 = mlp2nn_init()(torch.Generator().manual_seed(0))
+    runs = {}
+    for what, dev, mode in (
+            ("per_event on the card", device, "per_event"),
+            ("scan on the card", device, "scan"),
+            ("per_event on the CPU", torch.device("cpu"), "per_event")):
+        t = build_trainer(paper_spec(scales=(64,), mode=mode), "dsgd_aau", 64,
+                          0, device=dev, batch_pool=128,
+                          init_params={k: v.to(dev) for k, v in w0.items()})
+        runs[what] = (t, t.run(max_events=128, eval_every=32))
+    tp, rp = runs["per_event on the card"]
+    for what in ("scan on the card", "per_event on the CPU"):
+        t, r = runs[what]
+        err = state_err(tp, t)
+        loss_err = max(abs(p.loss - q.loss) for p, q in zip(rp.history, r.history))
+        print(f"[10] dsgd_aau N=64, 128 events: per_event on the card vs {what}: "
+              f"max |W,S,y| err {err:.3e}, max loss err {loss_err:.3e}")
+        require(err <= 1e-4 and loss_err <= 1e-4,
+                f"per_event and {what} disagree: {err}, {loss_err}")
+        require(same_counters(rp, r), f"per_event and {what}: counters differ")
+    require(int(runs["scan on the card"][0]._ptr.max()) <= 128,
+            "the scan's pool wrapped")
+    return dict(eps=eps, launches=counts, trainer64=tp)
+
+
+def fused_paths(device) -> dict:
+    """Phase 11: fused AD-PSGD and AGP at N=256, then fused on the card
+    against fused on the CPU at N=16."""
+    import torch
+    from repro_torch.xp import build_trainer, mlp2nn_init
+
+    out = {}
+    spec = paper_spec(mode="fused", max_time=None, max_events=1024,
+                      block_size=32)
+    for alg in ("ad_psgd", "agp"):
+        tr = build_trainer(spec, alg, N_MAIN, 0, batch_pool=64, device=device)
+        require(tr.mode == "fused", f"fused path took mode {tr.mode}")
+        require(all(len(nb) for nb in tr.scheduler.graph.neighbor_lists),
+                "the N=256 graph has an isolated worker")
+        copies = int(tr.scheduler.fused_spec()["copies_pair"])
+        res, setup, wall, counts = drive(tr, 1024, 256)
+        check_history(res, f"fused {alg} N=256")
+        eps = res.total_events / wall
+        ptr_sum = int(tr._ptr.sum())
+        print(f"[11] {alg} N={N_MAIN} fused: {res.total_events} events in "
+              f"{wall:.3f} s = {eps:.1f} events/s (set-up {setup:.2f} s); "
+              f"launches {counts}; comm {res.total_comm_copies} "
+              f"(= {copies} x events: {res.total_comm_copies == 1024 * copies}); "
+              f"ptr sum {ptr_sum}; loss {res.history[0].loss:.4f} -> "
+              f"{res.history[-1].loss:.4f}")
+        require(counts["sparse_gossip"] > 0 and counts["scatter_rows"] > 0,
+                f"fused {alg} launched no active-set kernel: {counts}")
+        require(res.total_comm_copies == 1024 * copies and ptr_sum == 1024,
+                f"fused {alg}: event accounting is off")
+        require(res.history[-1].loss < res.history[0].loss,
+                f"the loss did not fall on fused {alg}")
+        out[alg] = dict(eps=eps, launches=counts)
+
+    w0 = mlp2nn_init()(torch.Generator().manual_seed(0))
+    spec16 = paper_spec(scales=(16,), mode="fused", max_time=None,
+                        max_events=96, block_size=16)
+    for alg in ("ad_psgd", "agp"):
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            t = build_trainer(spec16, alg, 16, 0, device=dev, batch_pool=96,
+                              init_params={k: v.to(dev) for k, v in w0.items()})
+            runs.append((t, t.run(max_events=96, eval_every=24)))
+        (tg, rg), (tc, rc) = runs
+        err = state_err(tg, tc)
+        print(f"[11] {alg} N=16 fused card vs CPU, 96 events: max |W,S,y| err "
+              f"{err:.3e}; total_time {rg.total_time} / {rc.total_time}, comm "
+              f"{rg.total_comm_copies} / {rc.total_comm_copies}")
+        require(err <= 1e-4, f"fused {alg}: card and CPU state disagree by {err}")
+        require(same_counters(rg, rc), f"fused {alg}: card and CPU counters differ")
+        require(bool(torch.equal(tg._ptr.cpu(), tc._ptr)), f"fused {alg}: ptr differs")
+    return out
+
+
+def batched_on_events(device, trainer) -> dict:
+    """Phase 12: the (E, N, N) consensus matrices of a real DSGD-AAU
+    EventBatch at N=64 through gossip_mix_batched on E copies of each
+    trainer leaf, held against gossip_mix_dense one event at a time."""
+    import itertools
+
+    import torch
+    from repro_torch.core.aau import gossip_mix_dense
+    from repro_torch.core.scheduler import EventBatch
+    from repro_torch.kernels.gossip_mix.ops import gossip_mix_batched
+    from repro_torch.xp import build_trainer
+
+    sched = build_trainer(paper_spec(scales=(64,)), "dsgd_aau", 64, 0,
+                          device=device).scheduler
+    batch = EventBatch.from_events(list(itertools.islice(sched.events(), 32)),
+                                   edge_bound=sched.edge_bound())
+    P = torch.as_tensor(batch.P, dtype=torch.float32).to(device)
+    E = P.shape[0]
+    stacks = {k: w.unsqueeze(0).expand((E,) + tuple(w.shape)).contiguous()
+              for k, w in trainer.W.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    mixed = {k: gossip_mix_batched(x, P) for k, x in stacks.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    err = 0.0
+    for e in range(E):
+        one = gossip_mix_dense(trainer.W, P[e])
+        for k in one:
+            err = max(err, close(mixed[k][e], one[k], "float32"))
+    print(f"[12] gossip_mix_batched on a DSGD-AAU EventBatch (E={E}, N=64): "
+          f"{len(stacks)} leaves, launches {counts['gossip_mix_batched']}; max "
+          f"|batched - gossip_mix_dense| {err:.3e}")
+    require(counts["gossip_mix_batched"] == len(stacks),
+            f"phase 12 launched {counts}")
+    return dict(launches=counts["gossip_mix_batched"], err=err)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -553,7 +792,8 @@ def main() -> int:
 
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
-    rows = check_kernels(device) + check_sequence_kernels(device)
+    rows = (check_kernels(device) + check_mix_kernels(device)
+            + check_sequence_kernels(device))
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
@@ -631,8 +871,19 @@ def main() -> int:
     # -- 7. card vs CPU: the reduced RecurrentGemma -------------------------
     serve_card_vs_cpu(device)
 
+    # -- 9-10. per_event at N=256; per_event vs scan and CPU at N=64 ---------
+    per_event = per_event_paths(device)
+
+    # -- 11. fused AD-PSGD and AGP at N=256; card vs CPU at N=16 --------------
+    fused = fused_paths(device)
+
+    # -- 12. gossip_mix_batched on a real EventBatch -------------------------
+    batched = batched_on_events(device, per_event["trainer64"])
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
+                "gossip_mix": per_event["launches"]["gossip_mix"],
+                "gossip_mix_batched": batched["launches"],
                 "sparse_gossip": counts_sparse["sparse_gossip"],
                 "scatter_rows": counts_sparse["scatter_rows"],
                 **served["launches"]}
@@ -644,6 +895,13 @@ def main() -> int:
         "masked_gossip": ("src/repro_torch/csrc/masked_gossip.cu",
                           "src/repro/kernels/gossip_mix/kernel.py:76",
                           dict(gossip, A=None)),
+        "gossip_mix": ("src/repro_torch/csrc/gossip_mix.cu",
+                       "src/repro/kernels/gossip_mix/kernel.py:45",
+                       dict(gossip, E=None)),
+        "gossip_mix_batched": ("src/repro_torch/csrc/gossip_mix.cu",
+                               "src/repro/kernels/gossip_mix/kernel.py:109",
+                               dict(dtype="float32", E=BATCHED_MAIN[0],
+                                    N=BATCHED_MAIN[1], D=BATCHED_MAIN[2])),
         "sparse_gossip": ("src/repro_torch/csrc/sparse_gossip.cu",
                           "src/repro/kernels/sparse_gossip/kernel.py:61",
                           dict(gossip, A=64, lanes="full")),
@@ -676,7 +934,9 @@ def main() -> int:
             "shape": sel,
         })
     print(f"[8] main path events/s: dsgd_aau N=256 sparse_scan {eps_sparse:.1f}, "
-          f"dsgd_sync N=256 scan {res_d.total_events / wall_d:.1f}; serve "
+          f"dsgd_sync N=256 scan {res_d.total_events / wall_d:.1f}, dsgd_aau "
+          f"N=256 per_event {per_event['eps']:.1f}, fused N=256 ad_psgd "
+          f"{fused['ad_psgd']['eps']:.1f} / agp {fused['agp']['eps']:.1f}; serve "
           f"{ARCH}: prefill {served['prefill_tok_s']:.1f} prompt tok/s, time to "
           f"first token {', '.join(f'{t:.4f}' for t in served['ttft'])} s, "
           f"decode {served['decode_tok_s']:.1f} tok/s, peak "

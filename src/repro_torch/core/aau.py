@@ -1,23 +1,30 @@
 """DSGD-AAU parameter updates in PyTorch.
 
-The port of the reference's ``repro/core/aau.py`` for the simulator's two
-block paths; both apply eq. (5), ``W(k) = [W(k−1) − ηG] P(k)``, to stacked
-worker state: every leaf of the parameter dict ``W`` (and of the snapshot
-dict ``S``) carries a leading worker axis N, and ``y`` holds the push-sum
-weights (float32 whatever the leaf dtype).
+The port of the reference's ``repro/core/aau.py`` for the simulator's
+paths; all apply eq. (5), ``W(k) = [W(k−1) − ηG] P(k)``, to stacked worker
+state: every leaf of the parameter dict ``W`` (and of the snapshot dict
+``S``) carries a leading worker axis N, and ``y`` holds the push-sum weights
+(float32 whatever the leaf dtype).
 
-1. **Dense block** (`masked_gossip_scan`): one :class:`EventBatch` of E
+1. **Per-event step** (`build_event_step`): one event at a time, the
+   reference's legacy interpreter.  Gradients at every worker's snapshot,
+   the elementwise step W − η·mask⊙G, then ``gossip_mix_dense``: one
+   ``gossip_mix`` kernel launch per leaf, Pᵀ·(W − η·mask⊙G).
+
+2. **Dense block** (`masked_gossip_scan`): one :class:`EventBatch` of E
    events, each an (N, N) consensus matrix with (N,) gradient/restart masks.
    Per event every worker's gradient is evaluated at its snapshot on its
    current pool batch, and each leaf takes one ``masked_gossip`` kernel
-   launch, Pᵀ·(W − η·mask⊙G).
+   launch, the same Pᵀ·(W − η·mask⊙G) with the step folded into the mix.
 
-2. **Sparse active-set block** (`sparse_gossip_scan`): one
+3. **Sparse active-set block** (`sparse_gossip_scan`): one
    :class:`SparseEventBatch` of E events over ``-1``-padded lane sets of
    width A.  Per event it gathers the active lanes' snapshots and pool
    batches, evaluates gradients for those lanes only, mixes each leaf with
    the A×A submatrix (one ``sparse_gossip`` launch) and scatters the rows
-   back into W and S in place (two ``scatter_rows`` launches).
+   back into W and S in place (two ``scatter_rows`` launches).  The fused
+   mode (:mod:`repro_torch.core.fused`) applies the same event update
+   (`sparse_event_update`) to events it generates on the device.
 
 The reference runs a block as one ``lax.scan``; here a block is a Python
 loop over its events, every launch queued on PyTorch's current stream.  The
@@ -36,12 +43,12 @@ which donated the carry, the sparse block updates ``W``, ``S``, ``y`` and
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.gossip_mix.ops import masked_gossip_mix
+from repro_torch.kernels.gossip_mix.ops import gossip_mix, masked_gossip_mix
 from repro_torch.kernels.sparse_gossip.ops import (scatter_active_rows,
                                                   sparse_gossip_rows)
 from repro_torch.utils.tree import Params
@@ -68,25 +75,58 @@ def to_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 # Stacked-worker updates
 # ---------------------------------------------------------------------------
 
+def gossip_mix_dense(W: Params, P: torch.Tensor) -> Params:
+    """out[j] = Σ_i P[i, j] · W[i] for every leaf (leading axis = worker):
+    one ``gossip_mix`` launch per leaf on the card."""
+    return {k: gossip_mix(x, P.to(x.dtype)) for k, x in W.items()}
+
+
 def masked_gossip_step(W: Params, S: Params, y: torch.Tensor, grads: Params,
                        P: torch.Tensor, grad_mask: torch.Tensor,
-                       restart_mask: torch.Tensor,
-                       eta: torch.Tensor) -> Tuple[Params, Params, torch.Tensor]:
+                       restart_mask: torch.Tensor, eta: torch.Tensor,
+                       fold_step: bool = True
+                       ) -> Tuple[Params, Params, torch.Tensor]:
     """One event applied to stacked worker state; returns (W', S', y').
 
     W: current parameters, leading axis N; S: the snapshots the gradients
     were evaluated at; y: push-sum weights; grads: ∇F_j at S (all workers,
     masked here); P: (N, N); masks: (N,) bool; eta: float32 scalar.
+    ``fold_step`` folds the gradient step into the mix (one
+    ``masked_gossip`` launch per leaf, the dense scan's form); without it
+    the step W − η·mask⊙G is taken elementwise and mixed by
+    ``gossip_mix_dense`` (the reference's default per-event form).
     """
     # fold η into the 0/1 mask in float32 (exact: the product is η or 0),
     # then cast per leaf, so a bf16 state stays bf16 through the update
     scaled = eta * grad_mask.to(torch.float32)
-    Wn = {k: masked_gossip_mix(w, grads[k], P.to(w.dtype), scaled.to(w.dtype))
-          for k, w in W.items()}
+    if fold_step:
+        Wn = {k: masked_gossip_mix(w, grads[k], P.to(w.dtype),
+                                   scaled.to(w.dtype))
+              for k, w in W.items()}
+    else:
+        Wn = gossip_mix_dense({k: w - _expand(scaled, w) * grads[k]
+                               for k, w in W.items()}, P)
     yn = torch.einsum("n,nj->j", y, P.to(y.dtype))
     Sn = {k: torch.where(_expand(restart_mask, Wn[k]) > 0, Wn[k], s)
           for k, s in S.items()}
     return Wn, Sn, yn
+
+
+def build_event_step(loss_fn: Callable) -> Callable:
+    """step(W, S, y, batches, P, grad_mask, restart_mask, eta) -> (W', S', y').
+
+    ``loss_fn(params, batch) -> scalar``; ``batches`` carry a leading worker
+    axis.  Gradients are evaluated at the snapshots S (staleness-correct),
+    then the unfolded step: W − η·mask⊙G elementwise, ``gossip_mix_dense``.
+    """
+    vgrad = torch.func.vmap(torch.func.grad(loss_fn))
+
+    def step(W, S, y, batches, P, grad_mask, restart_mask, eta):
+        grads = vgrad(S, batches)
+        return masked_gossip_step(W, S, y, grads, P, grad_mask, restart_mask,
+                                  eta, fold_step=False)
+
+    return step
 
 
 def debiased_average(W: Params, y: torch.Tensor) -> Params:
@@ -185,16 +225,22 @@ def sparse_event_update(W: Params, S: Params, y: torch.Tensor,
                         ptr: torch.Tensor, pools: Params, grad_fn: Callable,
                         workers: torch.Tensor, P_sub: torch.Tensor,
                         gm: torch.Tensor, rm: torch.Tensor, eta: torch.Tensor,
-                        lanes: torch.Tensor) -> Carry:
+                        lanes: Optional[torch.Tensor] = None) -> Carry:
     """One active-set event against the stacked carry, in place.
 
-    workers: (A,) int32 ``-1``-padded; P_sub: (A, A); gm/rm: (A,) bools;
-    eta: scalar or (A,) per lane; lanes: int64 positions of the valid lanes
-    (known on the host, so no device sync is needed to find them).
+    workers: (A,) ``-1``-padded; P_sub: (A, A); gm/rm: (A,) bools; eta:
+    scalar or (A,) per lane; lanes: int64 positions of the valid lanes,
+    where the host knows them.  With ``lanes=None`` the valid lanes are
+    found on the device: every padded lane rewrites the first valid lane's
+    row of y and ptr with that lane's own values, so the writes need no
+    host sync (at least one lane must be valid).
     Returns the same ``(W, S, y, ptr)`` objects, updated.
     """
     valid = workers >= 0
     gidx = torch.where(valid, workers, 0).long()
+    if lanes is None:
+        pos = torch.arange(valid.shape[0], device=valid.device)
+        lanes = torch.where(valid, pos, torch.argmax(valid.to(torch.int32)))
     # -- gather: only the A active lanes' snapshots, counters and batches
     Sa = {k: s.index_select(0, gidx) for k, s in S.items()}
     ptra = ptr.index_select(0, gidx)

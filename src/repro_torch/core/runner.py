@@ -18,8 +18,19 @@ Execution model (``mode="auto"`` picks the path with :func:`choose_mode`):
   into fixed-length chunks (``_bucket_cap``) and, where the lane width is
   small, folded into merged conflict-free rows (``merge_event_groups``).
   Every event gathers only the workers it touches.
-- Per-worker batches come from a sample pool drawn ahead of the run and
-  kept on the device, indexed by restart counters ``ptr`` the blocks carry.
+- ``mode="per_event"``: the reference's legacy interpreter, one event at a
+  time: the elementwise gradient step, then one ``gossip_mix`` launch per
+  leaf (``build_event_step``).  Each worker's batch is drawn on the host
+  when it restarts, as the reference's legacy path draws it.
+- ``mode="fused"``: single-edge schedulers (AD-PSGD, AGP) whose completion
+  times are iid draws.  The event process itself runs on the device
+  (:class:`~repro_torch.core.fused.FusedPairBlock`): per block the host
+  draws completion factors and neighbor picks; each event is picked by
+  ``argmin`` over the device clock and applied as a 2-lane active-set
+  update.  Runs are bounded by events only.
+- In the block and fused modes, per-worker batches come from a sample pool
+  drawn ahead of the run and kept on the device, indexed by restart
+  counters ``ptr`` the blocks carry.
   The pool is sized from the run's bound (capped at 1024 draws per worker)
   unless ``batch_pool`` pins it; the pointer wraps modulo the pool, with a
   warning when that happens.
@@ -29,8 +40,8 @@ Execution model (``mode="auto"`` picks the path with :func:`choose_mode`):
 
 Blocks are not padded to a fixed length as in the reference: PyTorch runs
 eagerly, so there is no compiled block shape to keep.  The reference's
-``per_event`` and ``fused`` modes and its telemetry, tracing, run log and
-sanitizer are not part of the port yet; asking for them raises.
+telemetry, tracing, run log and sanitizer are not part of the port yet;
+asking for them raises.
 """
 from __future__ import annotations
 
@@ -41,8 +52,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.aau import (debiased_average, masked_gossip_scan,
-                                  sparse_gossip_scan)
+from repro_torch.core.aau import (build_event_step, debiased_average,
+                                  masked_gossip_scan, sparse_gossip_scan,
+                                  to_device)
+from repro_torch.core.fused import FusedPairBlock
 from repro_torch.core.scheduler import (BucketedSparseEventBatch, EventBatch,
                                         Scheduler, SparseEventBatch,
                                         merge_event_groups)
@@ -51,6 +64,11 @@ from repro_torch.kernels import build
 from repro_torch.utils.tree import tree_size, tree_stack
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MODES = ("auto", "scan", "sparse_scan", "per_event", "fused")
+# the CUDA sources each mode's run launches
+MODE_KERNELS = {"scan": ("masked_gossip",), "per_event": ("gossip_mix",),
+                "sparse_scan": ("sparse_gossip", "scatter_rows"),
+                "fused": ("sparse_gossip", "scatter_rows")}
 
 
 def choose_mode(n: int, buckets: Tuple[int, ...],
@@ -106,6 +124,7 @@ class DecentralizedTrainer:
         eta_decay: float = 1.0,             # η(k) = η₀ · δᵏ per event
         seed: int = 0,
         mode: str = "auto",                 # "auto" | "scan" | "sparse_scan"
+                                            # | "per_event" | "fused"
         block_size: int = 32,               # events per dense block / chunk
         batch_pool: Optional[int] = None,   # pre-drawn samples per worker
                                             # (None = from the first run's
@@ -118,13 +137,8 @@ class DecentralizedTrainer:
         run_log=None,
         sanitize: Optional[bool] = None,
     ):
-        if mode in ("per_event", "fused"):
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet; use 'auto', 'scan' or "
-                "'sparse_scan'")
-        if mode not in ("auto", "scan", "sparse_scan"):
-            raise ValueError(
-                f"mode must be 'auto', 'scan' or 'sparse_scan', got {mode!r}")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         for name, value in (("telemetry", telemetry), ("trace", trace),
                             ("run_log", run_log), ("sanitize", sanitize)):
             if value:
@@ -137,6 +151,12 @@ class DecentralizedTrainer:
         if mode == "auto":
             mode = choose_mode(scheduler.n, scheduler.active_buckets(),
                                scheduler.global_events)
+        if mode == "fused" and not (hasattr(scheduler, "fused_spec")
+                                    and scheduler.fused_supported()):
+            raise ValueError(
+                "mode='fused' needs a single-edge scheduler (ad_psgd/agp) "
+                "whose time model has iid completion-time factors "
+                f"(TimeModel.iid_horizon); got {scheduler.name!r}")
         if mode == "sparse_scan" and scheduler.global_events:
             # barrier streams touch all n workers every event: gathering
             # them is pure overhead, so they take the dense scan
@@ -166,6 +186,11 @@ class DecentralizedTrainer:
         self._pool_len = 0
         self._ptr = None            # (n,) int32 restart counters
         self._warned_wrap = False
+        self._step = None           # per_event: the event step
+        self._batches = None        # per_event: (n, ...) current batches
+        self._draw_count = np.zeros(self.n, dtype=np.int64)
+        self._pair_block = None     # fused: the generate-and-consume block
+        self._pair_clock = None     # fused: (times, lock_free) on the device
 
     def _to_device(self, tree) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in tree.items()}
@@ -174,6 +199,43 @@ class DecentralizedTrainer:
         """Apply the worker-state dtype policy to a dict's float leaves."""
         return {k: v.to(self.dtype) if v.is_floating_point() else v
                 for k, v in tree.items()}
+
+    # -- per_event state ---------------------------------------------------
+    def _ensure_per_event(self) -> None:
+        if self._step is None:
+            self._step = build_event_step(self.loss_fn)
+            self._batches = self._cast(self._to_device(
+                tree_stack([self._draw(i) for i in range(self.n)])))
+
+    def _draw(self, worker: int):
+        """Worker ``worker``'s next batch, in the reference's draw order."""
+        b = self.worker_batch_fn(worker, int(self._draw_count[worker]))
+        self._draw_count[worker] += 1
+        return b
+
+    def _refresh_batches(self, idx: np.ndarray) -> None:
+        """Redraw the batches of the workers in ``idx`` (restarted lanes) on
+        the host and copy their rows into the device batches."""
+        if len(idx) == 0:
+            return
+        new = [self._draw(int(i)) for i in idx]
+        at = to_device(idx, torch.int64, self.device)
+        for k, leaf in self._batches.items():
+            rows = np.stack([np.asarray(b[k]) for b in new])
+            leaf.index_copy_(0, at, to_device(rows, leaf.dtype, self.device))
+
+    def _event_operands(self, ev, eta: float):
+        """(P, grad_mask, restart_mask, eta) of one event on the device,
+        from one host array and one copy."""
+        n = self.n
+        buf = np.empty(n * n + 2 * n + 1, dtype=np.float32)
+        buf[:n * n] = ev.P.reshape(-1)
+        buf[n * n:n * n + n] = ev.grad_workers
+        buf[n * n + n:-1] = ev.restart_workers
+        buf[-1] = eta
+        d = to_device(buf, torch.float32, self.device)
+        return (d[:n * n].view(n, n), d[n * n:n * n + n] > 0,
+                d[n * n + n:-1] > 0, d[-1])
 
     # -- sample pools ------------------------------------------------------
     def _estimate_restarts(self, max_time: float) -> int:
@@ -216,6 +278,13 @@ class DecentralizedTrainer:
             self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
             batch.P, batch.grad_workers, batch.restart_workers,
             self._etas(rounds + np.arange(batch.E)))
+
+    # -- fused path --------------------------------------------------------
+    def _ensure_fused(self, max_events: Optional[int] = None) -> None:
+        if self._pair_block is None:
+            self._pair_block = FusedPairBlock(
+                self.loss_fn, self.scheduler.fused_spec(), self.device)
+        self._ensure_pools(max_events)
 
     # -- sparse path -------------------------------------------------------
     def _dispatch_sparse_block(self, batch: SparseEventBatch, rounds: int,
@@ -288,18 +357,48 @@ class DecentralizedTrainer:
 
     def warmup(self, max_events: Optional[int] = None,
                max_time: Optional[float] = None) -> None:
-        """Set-up that a timed run should not pay: draw the sample pools for
-        this bound, build (on CUDA) the kernels of this trainer's path, and
-        pay the first-use costs of ``torch.func`` and the BLAS handles with
-        one discarded two-lane gradient and one eval.  Applies no event and
-        launches none of the port's kernels; the state is unchanged."""
-        self._ensure_pools(max_events, max_time)
+        """Set-up that a timed run should not pay; the state is unchanged.
+
+        Builds (on CUDA) the kernels of this trainer's path and pays the
+        first-use costs of ``torch.func``, the kernels and the BLAS handles:
+
+        - ``scan``/``sparse_scan``: draws the sample pools for this bound and
+          takes one discarded two-lane gradient; launches no kernel;
+        - ``per_event``: draws the first batches and applies one no-op event
+          (identity P, all-False masks), which leaves W, S and y exactly as
+          they were;
+        - ``fused``: draws the pools and advances clones of the state
+          through two events of zero draws, then discards them; no
+          scheduler RNG is consumed, so the run's stream is untouched.
+
+        Then one eval.
+        """
         if self.device.type == "cuda":
-            build.build(("masked_gossip",) if self.mode == "scan"
-                        else ("sparse_gossip", "scatter_rows"))
-        lanes = {k: s[:2] for k, s in self.S.items()}
-        batch = {k: p[:2, 0] for k, p in self._pools.items()}
-        torch.func.vmap(self.grad_fn)(lanes, batch)
+            build.build(MODE_KERNELS[self.mode])
+        dev = self.device
+        if self.mode == "per_event":
+            self._ensure_per_event()
+            eye = torch.eye(self.n, device=dev)
+            off = torch.zeros(self.n, dtype=torch.bool, device=dev)
+            self.W, self.S, self.y = self._step(
+                self.W, self.S, self.y, self._batches, eye, off, off,
+                torch.zeros((), device=dev))
+        elif self.mode == "fused":
+            self._ensure_fused(max_events)
+            clones = ({k: v.clone() for k, v in self.W.items()},
+                      {k: v.clone() for k, v in self.S.items()},
+                      self.y.clone(), self._ptr.clone())
+            zeros = np.zeros(2, dtype=np.float32)
+            self._pair_block(
+                clones, self._pools, torch.ones(self.n, device=dev),
+                torch.zeros(1, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                zeros, zeros, zeros)
+        else:
+            self._ensure_pools(max_events, max_time)
+            lanes = {k: s[:2] for k, s in self.S.items()}
+            batch = {k: p[:2, 0] for k, p in self._pools.items()}
+            torch.func.vmap(self.grad_fn)(lanes, batch)
         self._eval_row()
 
     # -- driving loop ------------------------------------------------------
@@ -308,6 +407,10 @@ class DecentralizedTrainer:
             eval_every: int = 10) -> RunResult:
         if not (max_events or max_time):
             raise ValueError("bound the run by events or virtual time")
+        if self.mode == "fused":
+            return self._run_fused(max_events, max_time, eval_every)
+        if self.mode == "per_event":
+            return self._run_per_event(max_events, max_time, eval_every)
         if self.mode == "sparse_scan":
             return self._run_sparse_stream(max_events, max_time, eval_every)
         return self._run_scan(max_events, max_time, eval_every)
@@ -360,8 +463,111 @@ class DecentralizedTrainer:
                 meta.append((k, t, comm,
                              float(np.mean(active_sizes[-eval_every:]))))
         self._warn_pool_wrap(rounds)
-        return self._finish_scan(eval_buf, meta, k, t, comm, rounds,
-                                 active_sizes)
+        return self._finish(eval_buf, meta, k, t, comm, rounds, active_sizes)
+
+    def _run_per_event(self, max_events, max_time, eval_every) -> RunResult:
+        """The legacy interpreter: one event step per scheduler event, the
+        restarted workers' next batches drawn on the host after it."""
+        self._ensure_per_event()
+        eval_buf = self._new_eval_buffer(max_events, eval_every)
+        meta: List[Tuple[int, float, int, float]] = []  # (k, t, comm, a_mean)
+        comm = 0
+        active_sizes: List[int] = []
+        t = 0.0
+        k = -1
+        rounds = 0
+        for ev in self.scheduler.events():
+            if max_events is not None and ev.k >= max_events:
+                break
+            if max_time is not None and ev.time > max_time:
+                break
+            k, t = ev.k, ev.time
+            comm += ev.param_copies_sent
+            active_sizes.append(ev.n_active)
+            self.W, self.S, self.y = self._step(
+                self.W, self.S, self.y, self._batches,
+                *self._event_operands(ev, self._etas(rounds)))
+            self._refresh_batches(ev.workers[ev.restart_lanes])
+            rounds += 1
+            if rounds % eval_every == 0:
+                eval_buf = self._record_eval(eval_buf, len(meta))
+                meta.append((k, t, comm,
+                             float(np.mean(active_sizes[-eval_every:]))))
+        return self._finish(eval_buf, meta, k, t, comm, rounds, active_sizes)
+
+    def _run_fused(self, max_events, max_time, eval_every) -> RunResult:
+        """Drive the generate-and-consume block (``mode="fused"``).
+
+        Per block the host draws the completion factors and neighbor picks;
+        who fires, when and with whom is decided on the device.  The
+        virtual clock and the copy counter stay on the device and reach the
+        host with the eval history, in one fetch at the end, so runs are
+        bounded by ``max_events`` only.
+        """
+        if not max_events:
+            raise ValueError(
+                "mode='fused' runs are bounded by max_events; max_time is "
+                "unsupported (the virtual clock lives on the device -- "
+                "bounding by it would force a host sync per block)")
+        if max_time is not None:
+            raise ValueError("mode='fused' does not support max_time")
+        sched = self.scheduler
+        dev = self.device
+        self._ensure_fused(max_events)
+        copies_pair = self._pair_block.copies_pair
+        if self._pair_clock is None:
+            self._pair_clock = (
+                to_device(sched.fused_initial_times(), torch.float32, dev),
+                torch.zeros(1, dtype=torch.float32, device=dev))
+        times, lock_free = self._pair_clock
+        comm = torch.zeros(1, dtype=torch.int64, device=dev)
+        carry = (self.W, self.S, self.y, self._ptr)
+        blk = max(1, min(self.block_size, eval_every, max_events))
+        # eval rows: [loss, metric, t_last, comm]
+        eval_buf = torch.zeros((2, 4), dtype=torch.float32, device=dev)
+        meta: List[Tuple[int, int]] = []  # (k, rounds_at_eval)
+        rounds = 0
+        while rounds < max_events:
+            until_eval = eval_every - rounds % eval_every
+            E = min(blk, until_eval, max_events - rounds)
+            factors, picks = sched.fused_draws(E)
+            etas = self._etas(rounds + np.arange(E)).astype(np.float32)
+            carry, lock_free, comm, (t_seq, _, _) = self._pair_block(
+                carry, self._pools, times, lock_free, comm, factors, picks,
+                etas)
+            rounds += E
+            if rounds % eval_every == 0 or rounds >= max_events:
+                eval_buf = self._record_eval(eval_buf, len(meta), t_seq[-1:],
+                                             comm.to(torch.float32))
+                meta.append((rounds - 1, rounds))
+        self.W, self.S, self.y, self._ptr = carry
+        self._pair_clock = (times, lock_free)
+        self._warn_pool_wrap(rounds)
+        vals = eval_buf[:len(meta)].cpu().numpy()  # the run's one fetch
+        # comm is exact through float32 up to 2^24 copies; pair-event counts
+        # (comm deltas / copies per pair) back out the mean active-set size:
+        # 2 lanes per pair event, 1 per isolated-worker event
+        history = []
+        prev_comm = 0
+        prev_rounds = 0
+        for i, (mk, mr) in enumerate(meta):
+            loss, metric, tt, commf = (float(v) for v in vals[i])
+            comm_i = int(round(commf))
+            E_i = mr - prev_rounds
+            pairs = ((comm_i - prev_comm) // copies_pair
+                     if copies_pair else E_i)
+            history.append(HistoryPoint(
+                k=mk, time=tt, loss=loss, metric=metric,
+                comm_param_copies=comm_i,
+                n_active_mean=(E_i + min(pairs, E_i)) / max(E_i, 1)))
+            prev_comm, prev_rounds = comm_i, mr
+        return RunResult(
+            algorithm=sched.name, history=history,
+            final_loss=history[-1].loss, final_metric=history[-1].metric,
+            total_events=rounds, total_time=history[-1].time,
+            total_comm_copies=history[-1].comm_param_copies,
+            param_count=self.param_count,
+            bytes_per_scalar=torch.empty((), dtype=self.dtype).element_size())
 
     def _run_sparse_stream(self, max_events, max_time, eval_every) -> RunResult:
         """The sparse path's driving loop, over packed chunks in stream order."""
@@ -410,8 +616,7 @@ class DecentralizedTrainer:
                 meta.append((k, t, comm,
                              float(np.mean(active_sizes[-eval_every:]))))
         self._warn_pool_wrap(rounds)
-        return self._finish_scan(eval_buf, meta, k, t, comm, rounds,
-                                 active_sizes)
+        return self._finish(eval_buf, meta, k, t, comm, rounds, active_sizes)
 
     def _warn_pool_wrap(self, rounds: int) -> None:
         max_ptr = int(self._ptr.max()) if rounds else 0
@@ -434,15 +639,19 @@ class DecentralizedTrainer:
                 torch.as_tensor(metric, dtype=torch.float32,
                                 device=self.device)])
 
-    def _record_eval(self, eval_buf: torch.Tensor, i: int) -> torch.Tensor:
-        row = self._eval_row()
-        if i == eval_buf.shape[0]:  # a max_time-bounded run outgrew the buffer
+    def _record_eval(self, eval_buf: torch.Tensor, i: int,
+                     *extra: torch.Tensor) -> torch.Tensor:
+        """Write history row ``i`` on the device: [loss, metric] and any
+        ``extra`` (1,) columns (the fused mode's clock and copy count); the
+        buffer doubles when full."""
+        row = torch.cat([self._eval_row(), *extra])
+        if i == eval_buf.shape[0]:
             eval_buf = torch.cat([eval_buf, torch.zeros_like(eval_buf)])
         eval_buf[i] = row
         return eval_buf
 
-    def _finish_scan(self, eval_buf, meta, k, t, comm, rounds,
-                     active_sizes) -> RunResult:
+    def _finish(self, eval_buf, meta, k, t, comm, rounds,
+                active_sizes) -> RunResult:
         eval_buf = self._record_eval(eval_buf, len(meta))
         meta.append((k, t, comm,
                      float(np.mean(active_sizes)) if active_sizes else 0.0))

@@ -1,12 +1,18 @@
-"""Wrapper of the masked_gossip CUDA kernel: the dense event update.
+"""Wrappers of the masked_gossip and gossip_mix CUDA kernels.
 
 ``masked_gossip_mix`` is the op the dense scan calls once per leaf per
 event: out = Pᵀ·(W − diag(η·mask)·G) for any (N, ...) leaf.  It flattens the
 leaf to (N, D), folds the step into a second matrix Q = diag(η·mask)·P in
 the leaf's dtype (as the reference's ops do), and hands (W, G, P, Q) to
 ``masked_gossip_update``, which launches the kernel for CUDA tensors and
-runs the plain PyTorch version for CPU tensors -- nothing else.  The kernel
-masks ragged N and D itself, so nothing is padded here.
+runs the plain PyTorch version for CPU tensors -- nothing else.
+
+``gossip_mix`` is the plain mix out = Pᵀ·W of any (N, ...) leaf (the
+per-event step's mixing after its elementwise gradient step), and
+``gossip_mix_batched`` the same over E stacked problems, out[e] =
+P[e]ᵀ·W[e] for any (E, N, ...) leaf.  Both run their plain versions for
+CPU tensors and launch the ``gossip_mix`` kernels otherwise.  The kernels
+mask ragged N and D themselves, so nothing is padded here.
 """
 from __future__ import annotations
 
@@ -19,6 +25,12 @@ from repro_torch.kernels import build
 _PROTOTYPES = {
     "masked_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 5
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+}
+_MIX_PROTOTYPES = {
+    "gossip_mix_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "gossip_mix_batched_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
 
 
@@ -81,4 +93,89 @@ def masked_gossip_mix(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     P = P.to(flat_w.dtype)
     Q = (scaled_mask.to(flat_w.dtype)[:, None] * P).contiguous()
     out = masked_gossip_update(flat_w, flat_g, P.contiguous(), Q)
+    return out.reshape(W.shape)
+
+
+# -- plain mix --------------------------------------------------------------
+
+def gossip_mix_plain(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """out = Pᵀ·W on (N, D) operands, in float32, cast to W's dtype."""
+    f32 = torch.float32
+    return torch.einsum("nd,nj->jd", W.to(f32), P.to(f32)).to(W.dtype)
+
+
+def gossip_mix_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: out = Pᵀ·W, W (N, D), P (N, N)."""
+    dev = build.check_operands("gossip_mix", {"W": W, "P": P})
+    if W.dim() != 2 or P.shape != (W.shape[0], W.shape[0]):
+        raise ValueError(f"gossip_mix: shapes W{tuple(W.shape)} "
+                         f"P{tuple(P.shape)} are not (N, D) and (N, N)")
+    N, D = W.shape
+    out = torch.empty_like(W)
+    if out.numel() == 0:
+        return out
+    lib = build.load("gossip_mix", _MIX_PROTOTYPES)
+    with torch.cuda.device(dev):
+        status = lib.gossip_mix_launch(
+            build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
+            out.data_ptr(), N, D, build.stream_handle(dev))
+    build.check_status(lib, status, "gossip_mix")
+    gossip_mix_cuda.launches += 1
+    return out
+
+
+gossip_mix_cuda.launches = 0
+
+
+def gossip_mix(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """out[j] = Σ_i P[i, j]·W[i] for any (N, ...) leaf: the plain version
+    for CPU tensors, else the kernel.  P reaches it in W's dtype."""
+    N = W.shape[0]
+    flat = W.reshape(N, -1).contiguous()
+    P = P.to(flat.dtype).contiguous()
+    out = (gossip_mix_plain(flat, P) if flat.device.type == "cpu"
+           else gossip_mix_cuda(flat, P))
+    return out.reshape(W.shape)
+
+
+# -- batched mix ------------------------------------------------------------
+
+def gossip_mix_batched_plain(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """out[e] = P[e]ᵀ·W[e] on (E, N, D) operands, in float32, cast to W's
+    dtype."""
+    f32 = torch.float32
+    return torch.einsum("end,enj->ejd", W.to(f32), P.to(f32)).to(W.dtype)
+
+
+def gossip_mix_batched_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: out[e] = P[e]ᵀ·W[e], W (E, N, D), P (E, N, N)."""
+    dev = build.check_operands("gossip_mix_batched", {"W": W, "P": P})
+    if W.dim() != 3 or P.shape != (W.shape[0], W.shape[1], W.shape[1]):
+        raise ValueError(f"gossip_mix_batched: shapes W{tuple(W.shape)} "
+                         f"P{tuple(P.shape)} are not (E, N, D) and (E, N, N)")
+    E, N, D = W.shape
+    out = torch.empty_like(W)
+    if out.numel() == 0:
+        return out
+    lib = build.load("gossip_mix", _MIX_PROTOTYPES)
+    with torch.cuda.device(dev):
+        status = lib.gossip_mix_batched_launch(
+            build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
+            out.data_ptr(), E, N, D, build.stream_handle(dev))
+    build.check_status(lib, status, "gossip_mix_batched")
+    gossip_mix_batched_cuda.launches += 1
+    return out
+
+
+gossip_mix_batched_cuda.launches = 0
+
+
+def gossip_mix_batched(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """out[e] = P[e]ᵀ·W[e] for any (E, N, ...) leaf: the plain version for
+    CPU tensors, else the kernel.  P reaches it in W's dtype."""
+    E, N = W.shape[:2]
+    flat = W.reshape(E, N, -1).contiguous()
+    P = P.to(flat.dtype).contiguous()
+    out = (gossip_mix_batched_plain(flat, P) if flat.device.type == "cpu"
+           else gossip_mix_batched_cuda(flat, P))
     return out.reshape(W.shape)

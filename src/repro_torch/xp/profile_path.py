@@ -1,10 +1,11 @@
 """Where the time of one trainer path goes, on the card.
 
     python -m repro_torch.xp.profile_path [--alg dsgd_aau] [--n 256]
-        [--events 256] [--warm 64] [--out FILE]
+        [--mode sparse_scan] [--events 256] [--warm 64] [--out FILE]
 
 Builds one cell with the ``paper_figures`` settings (as ``chip_smoke.py``
-does), runs ``--warm`` events to pay one-time costs, then times ``--events``
+does) in the trainer mode ``--mode`` (``scan``, ``sparse_scan``,
+``per_event`` or ``fused``; ``fused`` takes ``ad_psgd`` or ``agp``), runs ``--warm`` events to pay one-time costs, then times ``--events``
 more three ways: the host clock around the run (events/s), a
 ``torch.profiler`` window over the same run (device time per kernel, the
 device's busy and idle share of the window, host time per operator) and a
@@ -20,17 +21,22 @@ import pstats
 import time
 
 
-def _spec(n: int):
+def _spec(n: int, mode: str, events: int):
     from repro_torch.xp import ExperimentSpec
+    # fused runs keep the virtual clock on the device: bounded by events
+    bound = (dict(max_time=None, max_events=events) if mode == "fused"
+             else dict(max_time=30.0))
     return ExperimentSpec(name="paper_figures", scales=(n,), seeds=(0,),
-                          mode="sparse_scan", max_time=30.0,
-                          ref_max_events=160, eval_every=10, ref_eval_every=2)
+                          mode=mode, ref_max_events=160, eval_every=10,
+                          ref_eval_every=2, **bound)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--alg", default="dsgd_aau")
     ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--mode", default="sparse_scan",
+                    choices=("scan", "sparse_scan", "per_event", "fused"))
     ap.add_argument("--events", type=int, default=256)
     ap.add_argument("--warm", type=int, default=64)
     ap.add_argument("--eval-every", type=int, default=None)
@@ -45,7 +51,7 @@ def main(argv=None) -> int:
     from repro_torch.xp import build_trainer
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
-    spec = _spec(args.n)
+    spec = _spec(args.n, args.mode, args.events)
     eval_every = args.eval_every or args.events
     tr = build_trainer(spec, args.alg, args.n, 0, batch_pool=64)
     tr.warmup(max_events=args.warm + 3 * args.events)

@@ -157,3 +157,82 @@ def test_bucketed_and_merged_blocks_match_reference(alg, kw):
     if alg != "dsgd_sync":  # barrier events all sit on the widest rung
         assert merged_rows > 0
     pair.check()
+
+
+# ---------------------------------------------------------------------------
+# The per-event step: elementwise gradient step, then gossip_mix_dense
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_gossip_mix_dense_matches_reference(use_kernel):
+    """Against both of the reference's forms: its einsum and its Pallas
+    kernel (interpret mode on the CPU)."""
+    W, _ = _state(3)
+    rng = np.random.default_rng(3)
+    P = rng.random((N, N)).astype(np.float32) + np.eye(N, dtype=np.float32)
+    P /= P.sum(axis=1, keepdims=True)
+    ref = ref_aau.gossip_mix_dense({k: jnp.asarray(v) for k, v in W.items()},
+                                   jnp.asarray(P), use_kernel=use_kernel)
+    out = aau.gossip_mix_dense({k: torch.as_tensor(v) for k, v in W.items()},
+                               torch.as_tensor(P))
+    for k in W:
+        assert out[k].shape == W[k].shape
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), **TOL)
+
+
+def test_gossip_mix_dense_average_consensus_fixed_point():
+    """Repeated mixing over a connected ring converges to the average, the
+    fixed point of a doubly-stochastic P."""
+    n, d = 8, 4
+    w = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    P = np.zeros((n, n), dtype=np.float32)
+    for i in range(n):
+        for j in (i - 1, i, i + 1):
+            P[i, j % n] = 1.0 / 3.0
+    W = {"w": torch.as_tensor(w)}
+    for _ in range(200):
+        W = aau.gossip_mix_dense(W, torch.as_tensor(P))
+    np.testing.assert_allclose(W["w"].numpy(), np.tile(w.mean(0), (n, 1)),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("alg,kw", ALGS[:2], ids=[a for a, _ in ALGS[:2]])
+def test_event_step_matches_reference(alg, kw):
+    """The port's build_event_step against the reference's, event by event
+    from the same carry: the unfolded step (elementwise, then the mix)."""
+    _, evs = _events(alg, **kw)
+    W, pools = _state(4)
+    batches = {k: v[:, 0] for k, v in pools.items()}
+    jstep = ref_aau.build_event_step(ref_loss)
+    tstep = aau.build_event_step(mlp2nn_loss)
+    jW = {k: jnp.asarray(v) for k, v in W.items()}
+    jS, jy = dict(jW), jnp.ones((N,), jnp.float32)
+    tW = {k: torch.as_tensor(v) for k, v in W.items()}
+    tS, ty = {k: v.clone() for k, v in tW.items()}, torch.ones(N)
+    jb = {k: jnp.asarray(v) for k, v in batches.items()}
+    tb = {k: torch.as_tensor(v) for k, v in batches.items()}
+    for e, ev in enumerate(evs[:8]):
+        eta = np.float32(0.2 * 0.95 ** e)
+        jW, jS, jy = jstep(jW, jS, jy, jb, jnp.asarray(ev.P, jnp.float32),
+                           jnp.asarray(ev.grad_workers),
+                           jnp.asarray(ev.restart_workers), jnp.float32(eta))
+        tW, tS, ty = tstep(tW, tS, ty, tb, torch.as_tensor(ev.P),
+                           torch.as_tensor(ev.grad_workers),
+                           torch.as_tensor(ev.restart_workers),
+                           torch.tensor(eta))
+    for name, ja, ta in (("W", jW, tW), ("S", jS, tS)):
+        for k in ja:
+            np.testing.assert_allclose(ta[k].numpy(), np.asarray(ja[k]),
+                                       err_msg=f"{name}[{k}]", **TOL)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    # the folded form (the dense scan's masked_gossip) is the same update
+    grads = torch.func.vmap(torch.func.grad(mlp2nn_loss))(tS, tb)
+    ev = evs[8]
+    args = (tW, tS, ty, grads, torch.as_tensor(ev.P),
+            torch.as_tensor(ev.grad_workers),
+            torch.as_tensor(ev.restart_workers), torch.tensor(0.1))
+    unfolded = aau.masked_gossip_step(*args, fold_step=False)
+    folded = aau.masked_gossip_step(*args, fold_step=True)
+    for k in tW:
+        np.testing.assert_allclose(unfolded[0][k].numpy(),
+                                   folded[0][k].numpy(), **TOL)

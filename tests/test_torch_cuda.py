@@ -59,6 +59,38 @@ def test_masked_gossip_kernel_matches_plain(cuda, n, d, dt):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 1), (3, 7), (63, 4097), (100, 511),
+                                 (256, 2560)])
+def test_gossip_mix_kernel_matches_plain(cuda, n, d, dt):
+    g = torch.Generator().manual_seed(7 * n + d)
+    W = torch.randn(n, d, generator=g).to(cuda, dt)
+    P = torch.rand(n, n, generator=g).to(cuda, dt)
+    before = gossip_ops.gossip_mix_cuda.launches
+    out = gossip_ops.gossip_mix_cuda(W, P)
+    assert gossip_ops.gossip_mix_cuda.launches == before + 1
+    _close(out, gossip_ops.gossip_mix_plain(W, P), dt)
+    # the leaf op launches the kernel for CUDA tensors, any (N, ...) shape
+    out2 = gossip_ops.gossip_mix(W.reshape((n, 1, d)), P)
+    assert gossip_ops.gossip_mix_cuda.launches == before + 2
+    assert torch.equal(out, out2.reshape(n, d))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,d", [(1, 8, 511), (7, 63, 1000), (32, 64, 4097)])
+def test_gossip_mix_batched_kernel_matches_plain(cuda, e, n, d, dt):
+    g = torch.Generator().manual_seed(e + n + d)
+    W = torch.randn(e, n, d, generator=g).to(cuda, dt)
+    P = torch.rand(e, n, n, generator=g).to(cuda, dt)
+    before = gossip_ops.gossip_mix_batched_cuda.launches
+    out = gossip_ops.gossip_mix_batched(W, P)
+    assert gossip_ops.gossip_mix_batched_cuda.launches == before + 1
+    _close(out, gossip_ops.gossip_mix_batched_plain(W, P), dt)
+    for k in range(e):   # each problem is its own single mix
+        assert torch.equal(out[k], gossip_ops.gossip_mix_cuda(W[k].contiguous(),
+                                                              P[k].contiguous()))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("a", [2, 16, 40, 64, 300])
 def test_sparse_kernels_match_plain(cuda, a, dt):
     n, d = 512, 777
@@ -106,6 +138,12 @@ def test_wrappers_refuse_what_they_cannot_launch(cuda):
         gossip_ops.masked_gossip_cuda(W.t().contiguous().t(), W,
                                       torch.eye(4, device=cuda),
                                       torch.eye(4, device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        gossip_ops.gossip_mix_cuda(W.double(), torch.eye(4, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        gossip_ops.gossip_mix_cuda(W, torch.eye(5, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        gossip_ops.gossip_mix_batched_cuda(W[None], torch.eye(4, device=cuda))
 
 
 @pytest.mark.parametrize("alg,mode,n,dtype", [
@@ -113,6 +151,8 @@ def test_wrappers_refuse_what_they_cannot_launch(cuda):
     ("ad_psgd", "sparse_scan", 16, "float32"),
     ("dsgd_sync", "scan", 16, "float32"),
     ("dsgd_aau", "sparse_scan", 32, "bfloat16"),
+    ("ad_psgd", "fused", 16, "float32"),
+    ("agp", "fused", 16, "float32"),
 ])
 def test_trainer_on_the_card_matches_the_cpu(cuda, alg, mode, n, dtype):
     """Same W0, same stream: float32 within 1e-4; bfloat16 within its
@@ -138,6 +178,44 @@ def test_trainer_on_the_card_matches_the_cpu(cuda, alg, mode, n, dtype):
         assert (p.k, p.time, p.comm_param_copies) == (q.k, q.time,
                                                       q.comm_param_copies)
         assert abs(p.loss - q.loss) <= tol
+    assert (rg.total_time, rg.total_comm_copies) == (rc.total_time,
+                                                     rc.total_comm_copies)
+
+
+@pytest.mark.parametrize("alg", ["dsgd_aau", "ad_psgd"])
+def test_per_event_on_the_card_matches_the_cpu_and_the_scan(cuda, alg):
+    """per_event launches gossip_mix and no masked_gossip; it agrees with
+    itself on the CPU and with the dense scan (masked_gossip) on the card."""
+    n = 16
+    w0 = mlp2nn_init()(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev, mode in ((cuda, "per_event"), (torch.device("cpu"), "per_event"),
+                      (cuda, "scan")):
+        spec = ExperimentSpec(scales=(n,), mode=mode, max_time=None,
+                              max_events=48)
+        tr = build_trainer(spec, alg, n, 0, device=dev, batch_pool=64,
+                           init_params={k: v.to(dev) for k, v in w0.items()})
+        tr.warmup(max_events=48)
+        counts = (gossip_ops.gossip_mix_cuda.launches,
+                  gossip_ops.masked_gossip_cuda.launches)
+        res = tr.run(max_events=48, eval_every=16)
+        counts = (gossip_ops.gossip_mix_cuda.launches - counts[0],
+                  gossip_ops.masked_gossip_cuda.launches - counts[1])
+        runs[(dev.type, mode)] = (tr, res, counts)
+    tg, rg, cg = runs[("cuda", "per_event")]
+    assert cg[0] > 0 and cg[1] == 0
+    assert runs[("cpu", "per_event")][2] == (0, 0)
+    for key in (("cpu", "per_event"), ("cuda", "scan")):
+        tc, rc, _ = runs[key]
+        for k in tg.W:
+            torch.testing.assert_close(tg.W[k].cpu(), tc.W[k].cpu(),
+                                       atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(tg.y.cpu(), tc.y.cpu(), atol=1e-5,
+                                   rtol=1e-5)
+        for p, q in zip(rg.history, rc.history):
+            assert (p.k, p.time, p.comm_param_copies) == (q.k, q.time,
+                                                          q.comm_param_copies)
+            assert abs(p.loss - q.loss) <= 1e-4
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

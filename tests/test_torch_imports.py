@@ -27,6 +27,7 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.core.runner" in mods and "repro_torch.xp.builders" in mods
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.models.transformer" in mods
+    assert "repro_torch.core.fused" in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -16,6 +16,9 @@ import torch
 
 from repro.kernels.gossip_mix import ops as jax_gossip_ops
 from repro.kernels.gossip_mix.ref import masked_gossip_ref as jax_masked_ref
+from repro.kernels.gossip_mix.ref import (
+    gossip_mix_batched_ref as jax_mix_batched_ref,
+    gossip_mix_ref as jax_mix_ref)
 from repro.kernels.sparse_gossip import ops as jax_sparse_ops
 from repro.kernels.sparse_gossip.ref import (
     sparse_gossip_apply_ref as jax_apply_ref,
@@ -27,7 +30,9 @@ from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
 from repro.models.rglru import rglru_scan as jax_rglru_scan
 from repro_torch.kernels import build
 from repro_torch.kernels.gossip_mix import ops as gossip_ops
-from repro_torch.kernels.gossip_mix.ref import masked_gossip_ref
+from repro_torch.kernels.gossip_mix.ref import (gossip_mix_batched_ref,
+                                               gossip_mix_ref,
+                                               masked_gossip_ref)
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.sparse_gossip import ops as sparse_ops
 from repro_torch.kernels.sparse_gossip.ref import (sparse_gossip_apply_ref,
@@ -95,6 +100,74 @@ def test_masked_gossip_multidim_leaf_keeps_its_shape():
     assert out.shape == (8, 3, 5)
     np.testing.assert_allclose(out.numpy().reshape(8, -1), np.asarray(ref),
                                **_tol("float32"))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n,d", SHAPES)
+def test_gossip_mix_matches_reference(n, d, dtype):
+    rng = np.random.default_rng(100 * n + d + 1)
+    W = rng.normal(size=(n, d)).astype(np.float32)
+    P = _stochastic(rng, n)
+    (jW, tW), (jP, tP) = _both(W, dtype), _both(P, dtype)
+    jax_ref = jax_mix_ref(jW, jP)
+    jax_ops = jax_gossip_ops.gossip_mix(jW, jP, interpret=True)
+    port_ref = gossip_mix_ref(tW, tP)
+    port_ops = gossip_ops.gossip_mix(tW, tP)
+    assert port_ops.dtype == tW.dtype and port_ops.shape == (n, d)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(port_ref), _f32(jax_ref), **tol)
+    np.testing.assert_allclose(_f32(port_ops), _f32(jax_ops), **tol)
+    np.testing.assert_allclose(_f32(port_ops), _f32(jax_ref), **tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("E,n,d", [(1, 3, 7), (3, 8, 512), (4, 16, 1000),
+                                   (2, 5, 513)])
+def test_gossip_mix_batched_matches_reference(E, n, d, dtype):
+    rng = np.random.default_rng(1000 * E + 10 * n + d)
+    W = rng.normal(size=(E, n, d)).astype(np.float32)
+    P = np.stack([_stochastic(rng, n) for _ in range(E)])
+    (jW, tW), (jP, tP) = _both(W, dtype), _both(P, dtype)
+    jax_ref = jax_mix_batched_ref(jW, jP)
+    jax_ops = jax_gossip_ops.gossip_mix_batched(jW, jP, interpret=True)
+    port_ref = gossip_mix_batched_ref(tW, tP)
+    port_ops = gossip_ops.gossip_mix_batched(tW, tP)
+    assert port_ops.dtype == tW.dtype and port_ops.shape == (E, n, d)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(port_ref), _f32(jax_ref), **tol)
+    np.testing.assert_allclose(_f32(port_ops), _f32(jax_ops), **tol)
+    # each problem is the single mix of its own P
+    for e in range(E):
+        np.testing.assert_allclose(
+            _f32(port_ops[e]), _f32(gossip_ops.gossip_mix(tW[e], tP[e])),
+            **tol)
+
+
+def test_gossip_mix_multidim_leaves_and_identity():
+    rng = np.random.default_rng(11)
+    W = rng.normal(size=(8, 3, 5)).astype(np.float32)
+    P = _stochastic(rng, 8)
+    out = gossip_ops.gossip_mix(torch.as_tensor(W), torch.as_tensor(P))
+    assert out.shape == (8, 3, 5)
+    np.testing.assert_allclose(
+        out.numpy().reshape(8, -1),
+        np.asarray(jax_mix_ref(jnp.asarray(W.reshape(8, -1)),
+                               jnp.asarray(P))), **_tol("float32"))
+    # identity mixing returns every row exactly
+    same = gossip_ops.gossip_mix(torch.as_tensor(W), torch.eye(8))
+    np.testing.assert_array_equal(same.numpy(), W)
+    Wb = rng.normal(size=(3, 6, 2, 4)).astype(np.float32)
+    Pb = np.stack([_stochastic(rng, 6) for _ in range(3)])
+    outb = gossip_ops.gossip_mix_batched(torch.as_tensor(Wb),
+                                         torch.as_tensor(Pb))
+    assert outb.shape == (3, 6, 2, 4)
+    np.testing.assert_allclose(
+        outb.numpy().reshape(3, 6, -1),
+        np.asarray(jax_mix_batched_ref(jnp.asarray(Wb.reshape(3, 6, -1)),
+                                       jnp.asarray(Pb))), **_tol("float32"))
+    eyes = torch.eye(6).expand(3, 6, 6)
+    np.testing.assert_array_equal(
+        gossip_ops.gossip_mix_batched(torch.as_tensor(Wb), eyes).numpy(), Wb)
 
 
 def _lanes(rng, n, kind):
@@ -187,13 +260,18 @@ def test_cpu_tensors_never_launch_a_kernel():
     gossip_ops.masked_gossip_mix(tW, torch.as_tensor(
         rng.normal(size=(8, 64)).astype(np.float32)),
         torch.eye(8), torch.zeros(8))
+    gossip_ops.gossip_mix(tW, torch.eye(8))
+    gossip_ops.gossip_mix_batched(tW[None], torch.eye(8)[None])
     assert before == (0, 0, 0)
     assert (gossip_ops.masked_gossip_cuda.launches,
             sparse_ops.sparse_gossip_cuda.launches,
-            sparse_ops.scatter_rows_cuda.launches) == (0, 0, 0)
+            sparse_ops.scatter_rows_cuda.launches,
+            gossip_ops.gossip_mix_cuda.launches,
+            gossip_ops.gossip_mix_batched_cuda.launches) == (0, 0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("call", ["masked", "sparse", "scatter"])
+@pytest.mark.parametrize("call", ["masked", "sparse", "scatter", "mix",
+                                  "batched"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper raises on what it cannot launch on; it never
     substitutes the plain version."""
@@ -204,6 +282,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
             gossip_ops.masked_gossip_cuda(W, W, torch.eye(4), torch.eye(4))
         elif call == "sparse":
             sparse_ops.sparse_gossip_cuda(W, W, torch.eye(4), torch.eye(4), idx)
+        elif call == "mix":
+            gossip_ops.gossip_mix_cuda(W, torch.eye(4))
+        elif call == "batched":
+            gossip_ops.gossip_mix_batched_cuda(W[None], torch.eye(4)[None])
         else:
             sparse_ops.scatter_rows_cuda(W, W, idx)
     assert sparse_ops.scatter_rows_cuda.launches == 0

@@ -105,8 +105,7 @@ def test_entry_points_default_to_cuda():
         params_from_numpy({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("kw", [{"mode": "per_event"}, {"mode": "fused"},
-                                {"telemetry": True}, {"trace": True}])
+@pytest.mark.parametrize("kw", [{"telemetry": True}, {"trace": True}])
 def test_unported_options_raise(kw):
     sched = make_scheduler("dsgd_aau", build_graph("ring", 8),
                            get_scenario("paper_default", n=8, seed=0))
