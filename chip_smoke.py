@@ -12,7 +12,9 @@ non-zero, printing no result, when there is none or when any phase fails:
    main paths' shapes plus ragged and edge cases, in float32 and bfloat16,
    and time the kernel, the plain version and one PyTorch library call of
    the same function where one exists (``gossip_mix`` and
-   ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32);
+   ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32, ``gossip_mix``
+   timed at every leaf width of the 2-NN; ``swa_attention`` over T 1-4096
+   with the serve waves' padded lengths, windows 1 to past T, dh 64-256);
 3. the main path: DSGD-AAU at N=256 with the full 2-NN through the bucketed
    active-set path (``sparse_scan``, rungs 16/64/256), 1024 events, with the
    kernels' launch counters set to 0 just before and read just after;
@@ -55,6 +57,12 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores (TF32 is off for parity)
               "bfloat16": 989e12}   # tensor cores
+# The least time for a float32-accurate matrix product: three TF32 tensor-
+# core products per multiply-add (hi·hi + hi·lo + lo·hi, the 3xTF32 split
+# the gossip kernels can use) at 495 TFLOP/s, 165 TFLOP/s effective, which
+# beats the CUDA cores' 67.  The product rows (masked_gossip, gossip_mix,
+# gossip_mix_batched, sparse_gossip) are bounded by it in float32.
+PRODUCT_FLOPS = dict(PEAK_FLOPS, float32=495e12 / 3)
 TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # swa_attention's outputs are small (about sqrt(e / window) for unit q, k,
@@ -68,9 +76,9 @@ ARCH = "recurrentgemma-2b"
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
 SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
 SWA_MAIN = (4, 4096, 10, 1, 256, 2048)     # B, T, H, KV, dh, window
-MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 511, 4097, 65536)
+SERVE_PADDED = (2795, 3561)                # phase 6's padded prompt lengths
+MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
-MIX_MAIN = (256, 65536)                    # N, D of gossip_mix
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
 
 
@@ -107,9 +115,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
+def bound_ms(nbytes: float, flops: float, dtype: str, peaks: dict = PEAK_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -180,7 +188,7 @@ def check_kernels(device) -> dict:
             err = close(out, ref, dname)
             s = W.element_size()
             nbytes = 3 * N * D * s + 2 * N * N * s
-            b, by = bound_ms(nbytes, 4.0 * N * N * D, dname)
+            b, by = bound_ms(nbytes, 4.0 * N * N * D, dname, PRODUCT_FLOPS)
             reps = 20 if D >= 16384 else 200
             rows.append(dict(
                 kernel="masked_gossip", dtype=dname, N=N, A=None, D=D,
@@ -222,7 +230,8 @@ def check_kernels(device) -> dict:
                     s = W.element_size()
                     reps = 20 if D >= 16384 else 200
                     b, by = bound_ms(3 * n_valid * D * s + 2 * A * A * s + 4 * A,
-                                     4.0 * n_valid * n_valid * D, dname)
+                                     4.0 * n_valid * n_valid * D, dname,
+                                     PRODUCT_FLOPS)
                     wv = w[valid].long()
                     gv = out[valid]
                     row = dict(kernel="sparse_gossip", dtype=dname, N=N, A=A,
@@ -271,7 +280,9 @@ def check_mix_kernels(device) -> list:
         s = torch.empty((), dtype=dt).element_size()
         for N in MIX_N:
             P = stochastic(n=N).to(device, dt)
-            for D in MIX_D:
+            # at N = 256 also the widths per_event launches, each timed
+            widths = sorted(set(MIX_D) | (set(D_LEAVES) if N == N_MAIN else set()))
+            for D in widths:
                 W = torch.randn(N, D, generator=dgen, device=device).to(dt)
                 out = gossip_ops.gossip_mix_cuda(W, P)
                 ref = gossip_ops.gossip_mix_plain(W, P)
@@ -279,14 +290,29 @@ def check_mix_kernels(device) -> list:
                 row = dict(kernel="gossip_mix", dtype=dname, E=None, N=N, D=D,
                            max_abs_err=close(out, ref, dname))
                 row["bound_ms"], row["bound_by"] = bound_ms(
-                    (2 * N * D + N * N) * s, 2.0 * N * N * D, dname)
-                if (N, D) == MIX_MAIN:
+                    (2 * N * D + N * N) * s, 2.0 * N * N * D, dname, PRODUCT_FLOPS)
+                if N == N_MAIN and D in D_LEAVES:
+                    reps = 50 if D >= 16384 else 200
                     row.update(
-                        ms=time_ms(lambda: gossip_ops.gossip_mix_cuda(W, P), 50),
+                        ms=time_ms(lambda: gossip_ops.gossip_mix_cuda(W, P), reps),
                         plain_ms=time_ms(lambda: gossip_ops.gossip_mix_plain(W, P), 20),
-                        library_ms=time_ms(lambda: torch.matmul(P.T, W), 50))
+                        library_ms=time_ms(lambda: torch.matmul(P.T, W), reps))
                 rows.append(row)
                 del W, out, ref
+        if dname == "float32":
+            # the tensor cores' float32 sums truncate: against the exact
+            # product, the kernel must stay within the float32 bound where
+            # unnormalised P makes outputs of order 10
+            W = torch.randn(N_MAIN, 16384, generator=dgen, device=device)
+            P = torch.rand(N_MAIN, N_MAIN, generator=gen).to(device)
+            exact = P.double().T @ W.double()
+            e_k = float((gossip_ops.gossip_mix_cuda(W, P).double() - exact).abs().max())
+            e_p = float((gossip_ops.gossip_mix_plain(W, P).double() - exact).abs().max())
+            print(f"[2] gossip_mix float32 against float64, N={N_MAIN}, D=16384, "
+                  f"P uniform on [0, 1): kernel {e_k:.3e}, plain (cuBLAS) {e_p:.3e}")
+            require(e_k <= TOL["float32"]["atol"],
+                    f"gossip_mix is {e_k} from the exact product")
+            del W, P, exact
         for E in MIX_E:
             for N in MIX_N:
                 P = stochastic(E, n=N).to(device, dt)
@@ -299,7 +325,8 @@ def check_mix_kernels(device) -> list:
                     row = dict(kernel="gossip_mix_batched", dtype=dname, E=E,
                                N=N, D=D, max_abs_err=close(out, ref, dname))
                     row["bound_ms"], row["bound_by"] = bound_ms(
-                        E * (2 * N * D + N * N) * s, 2.0 * E * N * N * D, dname)
+                        E * (2 * N * D + N * N) * s, 2.0 * E * N * N * D, dname,
+                        PRODUCT_FLOPS)
                     if (E, N, D) == BATCHED_MAIN:
                         Pt = P.transpose(1, 2)
                         row.update(
@@ -362,9 +389,14 @@ def check_sequence_kernels(device) -> list:
         for T in (1, 100, 4096):
             for window in (1, 64, 2048, T + 1):
                 for groups in (1, 10):
-                    for dh in (64, 256):
+                    for dh in (64, 128, 256):
                         rows.append(_swa_case(swa_ops, gen, device, dname, dt,
                                               1, T, groups, 1, dh, window))
+        for T in SERVE_PADDED:
+            for window in (1, 2048, T + 1):
+                for dh in (128, 256):
+                    rows.append(_swa_case(swa_ops, gen, device, dname, dt,
+                                          1, T, 10, 1, dh, window))
         rows.append(_swa_case(swa_ops, gen, device, dname, dt, *SWA_MAIN,
                               timed=True))
     return rows
@@ -799,6 +831,11 @@ def main() -> int:
     for r in rows:
         if "ms" in r:
             print("    " + json.dumps(r))
+    for r in rows:
+        if r["kernel"] == "gossip_mix" and "ms" in r:
+            print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
+                  f"width): kernel {r['ms']:.4f} ms, torch.matmul "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
     # -- 3. main path: bucketed DSGD-AAU at N=256 ---------------------------
     spec = paper_spec()

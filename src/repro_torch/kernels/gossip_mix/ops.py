@@ -12,7 +12,8 @@ per-event step's mixing after its elementwise gradient step), and
 ``gossip_mix_batched`` the same over E stacked problems, out[e] =
 P[e]ᵀ·W[e] for any (E, N, ...) leaf.  Both run their plain versions for
 CPU tensors and launch the ``gossip_mix`` kernels otherwise.  The kernels
-mask ragged N and D themselves, so nothing is padded here.
+mask ragged N and D themselves, so nothing is padded here; their wrappers
+allocate the scratch in which the kernel splits Pᵀ into TF32 parts.
 """
 from __future__ import annotations
 
@@ -27,11 +28,18 @@ _PROTOTYPES = {
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
 _MIX_PROTOTYPES = {
-    "gossip_mix_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+    "gossip_mix_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 4
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
-    "gossip_mix_batched_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+    "gossip_mix_batched_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 4
     + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
+
+
+def _split_p_scratch(E: int, N: int, device: torch.device) -> torch.Tensor:
+    """Scratch of the gossip_mix kernels: Pᵀ split into TF32 hi and lo
+    parts, (E, 2, N, Kp) float32 with Kp = N rounded up to 32."""
+    kp = -(-N // 32) * 32
+    return torch.empty((E, 2, N, kp), dtype=torch.float32, device=device)
 
 
 def masked_gossip_plain(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
@@ -115,10 +123,11 @@ def gossip_mix_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
+    scratch = _split_p_scratch(1, N, dev)
     with torch.cuda.device(dev):
         status = lib.gossip_mix_launch(
             build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
-            out.data_ptr(), N, D, build.stream_handle(dev))
+            out.data_ptr(), scratch.data_ptr(), N, D, build.stream_handle(dev))
     build.check_status(lib, status, "gossip_mix")
     gossip_mix_cuda.launches += 1
     return out
@@ -158,10 +167,12 @@ def gossip_mix_batched_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
+    scratch = _split_p_scratch(E, N, dev)
     with torch.cuda.device(dev):
         status = lib.gossip_mix_batched_launch(
             build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
-            out.data_ptr(), E, N, D, build.stream_handle(dev))
+            out.data_ptr(), scratch.data_ptr(), E, N, D,
+            build.stream_handle(dev))
     build.check_status(lib, status, "gossip_mix_batched")
     gossip_mix_batched_cuda.launches += 1
     return out

@@ -60,7 +60,8 @@ def test_masked_gossip_kernel_matches_plain(cuda, n, d, dt):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(1, 1), (3, 7), (63, 4097), (100, 511),
-                                 (256, 2560)])
+                                 (256, 2560), (256, 10), (256, 16384),
+                                 (1, 2560), (63, 10), (100, 65536)])
 def test_gossip_mix_kernel_matches_plain(cuda, n, d, dt):
     g = torch.Generator().manual_seed(7 * n + d)
     W = torch.randn(n, d, generator=g).to(cuda, dt)
@@ -76,7 +77,8 @@ def test_gossip_mix_kernel_matches_plain(cuda, n, d, dt):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,d", [(1, 8, 511), (7, 63, 1000), (32, 64, 4097)])
+@pytest.mark.parametrize("e,n,d", [(1, 8, 511), (7, 63, 1000), (32, 64, 4097),
+                                   (32, 64, 10), (4, 256, 2560), (3, 100, 10)])
 def test_gossip_mix_batched_kernel_matches_plain(cuda, e, n, d, dt):
     g = torch.Generator().manual_seed(e + n + d)
     W = torch.randn(e, n, d, generator=g).to(cuda, dt)
@@ -240,7 +242,12 @@ def test_linear_scan_kernel_matches_plain(cuda, B, Tn, W, kind, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Tn,H,KV,dh,w", [
     (1, 1, 1, 1, 64, 1), (1, 100, 10, 1, 256, 64), (2, 257, 4, 2, 128, 2048),
-    (1, 300, 2, 2, 64, 1), (1, 1030, 10, 1, 256, 500), (2, 64, 4, 1, 64, 64)])
+    (1, 300, 2, 2, 64, 1), (1, 1030, 10, 1, 256, 500), (2, 64, 4, 1, 64, 64),
+    # the serve waves' padded lengths, windows 1, 2048 and past T
+    (1, 2795, 10, 1, 128, 1), (1, 2795, 10, 1, 256, 2048),
+    (1, 3561, 10, 1, 128, 3562), (1, 3561, 10, 1, 256, 1),
+    # float32 keeps the CUDA-core kernel: dh = 64 at the float32 bound
+    (1, 300, 4, 2, 64, 100)])
 def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
     g = torch.Generator().manual_seed(Tn + w)
     q = torch.randn(B, Tn, H, dh, generator=g).to(cuda, dt)

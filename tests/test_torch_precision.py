@@ -1,0 +1,142 @@
+"""The two precision choices of the port's tensor-core kernels, on the CPU.
+
+The CUDA kernels run only on the card; these tests make their tolerance
+argument where there is none, by emulating each kernel's arithmetic on the
+same inputs (drawn with NumPy) and holding it against the JAX package's
+oracles at the tolerances the card is held to:
+
+* ``gossip_mix`` multiplies float32 operands as three TF32 products
+  (a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, each operand split into
+  hi = round_tf32(x) and lo = round_tf32(x − hi)) accumulated in float32.
+  That stays within float32 atol 2e-5 / rtol 1e-4 of the reference; one
+  TF32 pass does not, which is why the split is needed.
+* ``swa_attention`` (bfloat16) rounds the probabilities to bfloat16 before
+  the PV product.  An online softmax over 64-key tiles in float32 with that
+  rounding stays within ``chip_smoke.py``'s bf16 bound for the kernel
+  (atol 5e-3 / rtol 1e-2) of the reference.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gossip_mix.ref import gossip_mix_ref as jax_mix_ref
+from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
+
+FP32_TOL = dict(atol=2e-5, rtol=1e-4)
+SWA_BF16_TOL = dict(atol=5e-3, rtol=1e-2)
+MMA_K = 8          # depth of one mma.sync m16n8k8 TF32 step
+KEY_TILE = 64      # keys per tile of the bf16 attention kernel
+
+_jit_swa_ref = jax.jit(jax_swa_ref, static_argnames=("window", "n_groups"))
+
+
+def _round_tf32(x: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does: add half of the dropped 13 bits to the
+    magnitude, then clear them."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_parts(x: np.ndarray):
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def _tf32_mix(W: np.ndarray, P: np.ndarray, terms: int) -> np.ndarray:
+    """Pᵀ·W as the kernel's MMAs compute it: TF32 operands, products exact
+    (11 × 11 bits fit float32), sums kept in float32 after every k-step."""
+    A_hi, A_lo = _tf32_parts(P.T)
+    B_hi, B_lo = _tf32_parts(W)
+    pairs = ([(A_lo, B_hi), (A_hi, B_lo)] if terms == 3 else []) + [(A_hi, B_hi)]
+    acc = np.zeros((P.shape[1], W.shape[1]), dtype=np.float32)
+    for k0 in range(0, P.shape[0], MMA_K):
+        ks = slice(k0, k0 + MMA_K)
+        for A, B in pairs:
+            step = A[:, ks].astype(np.float64) @ B[ks].astype(np.float64)
+            acc = (acc + step.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def test_round_tf32_keeps_ten_mantissa_bits():
+    x = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                  -(1.0 + 2.0 ** -11), 3.0e-3], dtype=np.float32)
+    r = _round_tf32(x)
+    assert r[0] == 1.0 and r[1] == np.float32(1.0 + 2.0 ** -10)
+    assert r[2] == np.float32(1.0 + 2.0 ** -10)     # a tie rounds away from 0
+    assert r[3] == 1.0
+    assert r[4] == np.float32(-(1.0 + 2.0 ** -10))
+    assert (r.view(np.uint32) & np.uint32(0x1FFF)).max() == 0
+    assert abs(float(r[5]) - 3.0e-3) <= 2.0 ** -11 * 3.0e-3
+    # hi + lo carries x to ~2^-22 relative
+    hi, lo = _tf32_parts(x)
+    np.testing.assert_allclose(hi.astype(np.float64) + lo, x, rtol=2.0 ** -21)
+
+
+@pytest.mark.parametrize("n,d", [(8, 4097), (64, 1000), (100, 511)])
+def test_three_tf32_products_hold_float32_parity(n, d):
+    rng = np.random.default_rng(10 * n + d)
+    P = rng.random((n, n)).astype(np.float32) + np.eye(n, dtype=np.float32)
+    P = (P / P.sum(axis=1, keepdims=True)).astype(np.float32)
+    W = rng.normal(size=(n, d)).astype(np.float32)
+    ref = np.asarray(jax_mix_ref(jnp.asarray(W), jnp.asarray(P)))
+    three = _tf32_mix(W, P, terms=3)
+    np.testing.assert_allclose(three, ref, **FP32_TOL)
+    assert np.abs(three - ref).max() < 2e-6
+    # one TF32 pass misses the float32 bound: the split is needed
+    one = _tf32_mix(W, P, terms=1)
+    assert not np.allclose(one, ref, **FP32_TOL)
+    assert np.abs(one - ref).max() > 5 * np.abs(three - ref).max()
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.as_tensor(x).to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_p_attention(q, k, v, window: int, n_groups: int) -> torch.Tensor:
+    """The bf16 kernel's arithmetic in float32: scores scaled in log2 units,
+    an online softmax over 64-key tiles from the diagonal back, masked
+    scores at -1e30, P rounded to bfloat16 before the PV product, the
+    normaliser clamped at 1e-30, the output rounded to bfloat16."""
+    BH, T, dh = q.shape
+    kf = torch.repeat_interleave(k, n_groups, dim=0)
+    vf = torch.repeat_interleave(v, n_groups, dim=0)
+    scale = np.float32(1.0 / math.sqrt(dh)) * np.float32(1.4426950408889634)
+    rows = torch.arange(T)[:, None]
+    m = torch.full((BH, T, 1), -1e30)
+    l = torch.zeros((BH, T, 1))
+    o = torch.zeros((BH, T, dh))
+    for k0 in reversed(range(0, T, KEY_TILE)):
+        keys = torch.arange(k0, min(k0 + KEY_TILE, T))[None, :]
+        keep = (keys <= rows) & (keys > rows - window)
+        s = torch.einsum("htd,hsd->hts", q, kf[:, keys[0]]) * float(scale)
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.where(keep, torch.exp2(s - m_new), torch.zeros(()))
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + torch.einsum("hts,hsd->htd",
+                                    p.to(torch.bfloat16).to(torch.float32),
+                                    vf[:, keys[0]])
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+@pytest.mark.parametrize("T", [1, 100, 257])
+def test_bf16_probabilities_stay_in_the_swa_bound(T, dh):
+    rng = np.random.default_rng(T + dh)
+    H, KV = 4, 1
+    q, k, v = (_bf16(rng.normal(size=(n, T, dh)).astype(np.float32))
+               for n in (H, KV, KV))
+    for window in (1, 64, T + 1):
+        out = _bf16_p_attention(q, k, v, window, H // KV)
+        ref = np.asarray(_jit_swa_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                      window=window, n_groups=H // KV))
+        assert np.isfinite(out.numpy()).all()
+        torch.testing.assert_close(out, torch.tensor(ref), **SWA_BF16_TOL)
