@@ -11,7 +11,12 @@ non-zero, printing no result, when there is none or when any phase fails:
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes plus ragged and edge cases, in float32 and bfloat16,
    and time the kernel, the plain version and one PyTorch library call of
-   the same function where one exists (``gossip_mix`` and
+   the same function where one exists -- per call (CUDA events) and, for
+   the kernel and the library call, as device time alone (a profiled run,
+   L2 emptied before each call, each call's device events counted) and
+   the kernel's host issue time; ``masked_gossip`` and ``gossip_mix``
+   also against the float64 product where outputs are of order 10, and
+   ``masked_gossip`` summed over the 2-NN's six leaves (``gossip_mix`` and
    ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32, ``gossip_mix``
    timed at every leaf width of the 2-NN; ``swa_attention`` over T 1-4096
    with the serve waves' padded lengths, windows 1 to past T, dh 64-256);
@@ -69,7 +74,9 @@ TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
 # v: 0.03 at the main window), so its bfloat16 cases are held to a bound
 # set from that scale; one bf16 rounding apart stays within it
 SWA_TOL = dict(TOL, bfloat16=dict(atol=5e-3, rtol=1e-2))
-D_LEAVES = (16384, 65536, 256, 2560, 10)   # the 2-NN's leaf widths
+NN_LEAVES = (16384, 256, 65536, 256, 2560, 10)   # the 2-NN's leaf widths
+D_LEAVES = (16384, 65536, 256, 2560, 10)   # each width once
+REPS = 200                                 # calls per timing of a small kernel
 N_MAIN = 256
 A_RUNGS = (16, 64, 256)
 ARCH = "recurrentgemma-2b"
@@ -100,19 +107,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+_FLUSH = []   # phase 2's L2 flush (256 MB), made once, dropped after it
+
+
+def timings(fn, reps: int, plain, plain_reps: int, library=None,
+            launches: int = 1) -> dict:
+    """A kernel's figures per call: ``ms`` (CUDA events around back-to-back
+    calls, the larger of the device time and the host's issue time),
+    ``device_ms`` (the device time alone: the kernel's ``launches`` events
+    in a profiled run of as many calls, each after an L2 flush, so that its
+    operands come from device memory as ``bound_ms`` counts them),
+    ``host_us`` (the host's issue time); the plain version's ``plain_ms``;
+    and ``library_ms`` and ``library_device_ms`` (timed alike) of one
+    PyTorch call of the same function, where there is one."""
+    from repro_torch.profiling import device_ms, host_us, l2_flush, time_ms
+    if not _FLUSH:
+        _FLUSH.append(l2_flush("cuda"))
+    flush = _FLUSH[0]
+    row = dict(ms=time_ms(fn, reps),
+               device_ms=device_ms(fn, reps, launches, flush),
+               host_us=host_us(fn, reps), plain_ms=time_ms(plain, plain_reps),
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        row.update(library_ms=time_ms(library, reps),
+                   library_device_ms=device_ms(library, reps, flush=flush))
+    return row
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str, peaks: dict = PEAK_FLOPS):
@@ -189,13 +208,41 @@ def check_kernels(device) -> dict:
             s = W.element_size()
             nbytes = 3 * N * D * s + 2 * N * N * s
             b, by = bound_ms(nbytes, 4.0 * N * N * D, dname, PRODUCT_FLOPS)
-            reps = 20 if D >= 16384 else 200
             rows.append(dict(
                 kernel="masked_gossip", dtype=dname, N=N, A=None, D=D,
                 max_abs_err=err, bound_ms=b, bound_by=by,
-                ms=time_ms(lambda: gossip_ops.masked_gossip_cuda(W, G, Pd, Q), reps),
-                plain_ms=time_ms(lambda: gossip_ops.masked_gossip_plain(W, G, Pd, Q), reps),
-                library_ms=time_ms(lambda: Pd.T @ W - Q.T @ G, reps)))
+                **timings(
+                    lambda: gossip_ops.masked_gossip_cuda(W, G, Pd, Q), REPS,
+                    lambda: gossip_ops.masked_gossip_plain(W, G, Pd, Q), REPS,
+                    lambda: Pd.T @ W - Q.T @ G, launches=2)))
+        mine = {r["D"]: r for r in rows
+                if r["kernel"] == "masked_gossip" and r["dtype"] == dname}
+        per_event = {k: sum(mine[D][k] for D in NN_LEAVES)
+                     for k in ("device_ms", "ms", "library_device_ms")}
+        print(f"[2] masked_gossip {dname} per dense event (the 2-NN's six "
+              f"leaves at N={N}): device {per_event['device_ms']:.4f} ms "
+              f"(calls {per_event['ms']:.4f} ms); library device "
+              f"{per_event['library_device_ms']:.4f} ms")
+        if dname == "float32":
+            # the tensor cores' float32 sums truncate: against the exact
+            # product, the kernel must stay within the float32 bound where
+            # an unnormalised P makes outputs of order 10
+            g64 = torch.Generator().manual_seed(3)
+            W, G = (torch.randn(N, 16384, generator=g64).to(device)
+                    for _ in range(2))
+            Pu = torch.rand(N, N, generator=g64).to(device)
+            Qu = (torch.rand(N, N, generator=g64) * 0.1).to(device)
+            exact = Pu.double().T @ W.double() - Qu.double().T @ G.double()
+            e_k = float((gossip_ops.masked_gossip_cuda(W, G, Pu, Qu).double()
+                         - exact).abs().max())
+            e_p = float((gossip_ops.masked_gossip_plain(W, G, Pu, Qu).double()
+                         - exact).abs().max())
+            print(f"[2] masked_gossip float32 against float64, N={N}, D=16384, "
+                  f"P uniform on [0, 1), Q on [0, 0.1): kernel {e_k:.3e}, "
+                  f"plain (cuBLAS) {e_p:.3e}")
+            require(e_k <= TOL["float32"]["atol"],
+                    f"masked_gossip is {e_k} from the exact product")
+            del W, G, Pu, Qu, exact
         # sparse_gossip and scatter_rows at the bucket rungs
         for A in A_RUNGS:
             for kind in ("full", "pads", "all_pad"):
@@ -228,7 +275,6 @@ def check_kernels(device) -> dict:
                         require(bool(torch.equal(Xk, W)),
                                 "scatter_rows: an all-pad row wrote the carry")
                     s = W.element_size()
-                    reps = 20 if D >= 16384 else 200
                     b, by = bound_ms(3 * n_valid * D * s + 2 * A * A * s + 4 * A,
                                      4.0 * n_valid * n_valid * D, dname,
                                      PRODUCT_FLOPS)
@@ -242,21 +288,17 @@ def check_kernels(device) -> dict:
                     row_s["bound_ms"], row_s["bound_by"] = bound_ms(
                         2 * n_valid * D * s + 4 * A, 0.0, dname)
                     if kind == "full" or (kind == "pads" and D == 65536):
-                        row.update(
-                            ms=time_ms(lambda: sparse_ops.sparse_gossip_cuda(
-                                W, G, Ps_d, Qs, gidx), reps),
-                            plain_ms=time_ms(lambda: sparse_ops.sparse_gossip_plain(
-                                W, G, Ps_d, Qs, gidx), reps),
-                            library_ms=time_ms(
-                                lambda: Ps_d.T @ W.index_select(0, gidx.long())
-                                - Qs.T @ G, reps))
-                        row_s.update(
-                            ms=time_ms(lambda: sparse_ops.scatter_rows_cuda(
-                                Xk, out, w), reps),
-                            plain_ms=time_ms(lambda: sparse_ops.scatter_rows_plain(
-                                Xp, out, w), reps),
-                            library_ms=time_ms(
-                                lambda: Xp.index_copy_(0, wv, gv), reps))
+                        row.update(timings(
+                            lambda: sparse_ops.sparse_gossip_cuda(
+                                W, G, Ps_d, Qs, gidx), REPS,
+                            lambda: sparse_ops.sparse_gossip_plain(
+                                W, G, Ps_d, Qs, gidx), REPS,
+                            lambda: Ps_d.T @ W.index_select(0, gidx.long())
+                            - Qs.T @ G))
+                        row_s.update(timings(
+                            lambda: sparse_ops.scatter_rows_cuda(Xk, out, w), REPS,
+                            lambda: sparse_ops.scatter_rows_plain(Xp, out, w), REPS,
+                            lambda: Xp.index_copy_(0, wv, gv)))
                     rows += [row, row_s]
     return rows
 
@@ -292,11 +334,10 @@ def check_mix_kernels(device) -> list:
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     (2 * N * D + N * N) * s, 2.0 * N * N * D, dname, PRODUCT_FLOPS)
                 if N == N_MAIN and D in D_LEAVES:
-                    reps = 50 if D >= 16384 else 200
-                    row.update(
-                        ms=time_ms(lambda: gossip_ops.gossip_mix_cuda(W, P), reps),
-                        plain_ms=time_ms(lambda: gossip_ops.gossip_mix_plain(W, P), 20),
-                        library_ms=time_ms(lambda: torch.matmul(P.T, W), reps))
+                    row.update(timings(
+                        lambda: gossip_ops.gossip_mix_cuda(W, P), REPS,
+                        lambda: gossip_ops.gossip_mix_plain(W, P), 20,
+                        lambda: torch.matmul(P.T, W), launches=2))
                 rows.append(row)
                 del W, out, ref
         if dname == "float32":
@@ -329,12 +370,10 @@ def check_mix_kernels(device) -> list:
                         PRODUCT_FLOPS)
                     if (E, N, D) == BATCHED_MAIN:
                         Pt = P.transpose(1, 2)
-                        row.update(
-                            ms=time_ms(lambda: gossip_ops.gossip_mix_batched_cuda(
-                                W, P), 50),
-                            plain_ms=time_ms(lambda: gossip_ops.gossip_mix_batched_plain(
-                                W, P), 20),
-                            library_ms=time_ms(lambda: torch.bmm(Pt, W), 50))
+                        row.update(timings(
+                            lambda: gossip_ops.gossip_mix_batched_cuda(W, P), REPS,
+                            lambda: gossip_ops.gossip_mix_batched_plain(W, P), 20,
+                            lambda: torch.bmm(Pt, W), launches=2))
                     rows.append(row)
                     del W, out, ref
     return rows
@@ -381,10 +420,9 @@ def check_sequence_kernels(device) -> list:
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     3 * n * x.element_size(), 2.0 * n, dname)
                 if (B, T, W) == SCAN_MAIN and kind == "gate":
-                    row.update(
-                        ms=time_ms(lambda: scan_ops.linear_scan_cuda(a, x), 50),
-                        plain_ms=time_ms(lambda: scan_ops.linear_scan_plain(a, x), 2),
-                        library_ms=None)
+                    row.update(timings(
+                        lambda: scan_ops.linear_scan_cuda(a, x), REPS,
+                        lambda: scan_ops.linear_scan_plain(a, x), 2))
                 rows.append(row)
         for T in (1, 100, 4096):
             for window in (1, 64, 2048, T + 1):
@@ -425,13 +463,12 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
         q4 = q.reshape(B, H, T, dh)
         k4 = k.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
         v4 = v.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
-        row.update(
-            ms=time_ms(lambda: swa_ops.swa_attention_cuda(
-                q, k, v, window=window, n_groups=g), 5),
-            plain_ms=time_ms(lambda: swa_ops.swa_attention_plain(
-                q, k, v, window=window, n_groups=g), 2),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=band), 5))
+        row.update(timings(
+            lambda: swa_ops.swa_attention_cuda(q, k, v, window=window,
+                                               n_groups=g), 20,
+            lambda: swa_ops.swa_attention_plain(q, k, v, window=window,
+                                                n_groups=g), 2,
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)))
     return row
 
 
@@ -826,6 +863,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = (check_kernels(device) + check_mix_kernels(device)
             + check_sequence_kernels(device))
+    _FLUSH.clear()   # else its buffer counts in phase 6's peak memory
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
@@ -834,8 +872,15 @@ def main() -> int:
     for r in rows:
         if r["kernel"] == "gossip_mix" and "ms" in r:
             print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
-                  f"width): kernel {r['ms']:.4f} ms, torch.matmul "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+                  f"width): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+                  f"torch.matmul {r['library_ms']:.4f} ms (device "
+                  f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms")
+        if r["kernel"] == "scatter_rows" and "ms" in r and r["dtype"] == "float32":
+            print(f"[2] scatter_rows A={r['A']} D={r['D']} {r['lanes']}: device "
+                  f"(L2 cold) {r['device_ms']:.4f} ms, call {r['ms']:.4f} ms, host "
+                  f"{r['host_us']:.1f} us per call; index_copy_ device (L2 cold) "
+                  f"{r['library_device_ms']:.4f} ms, call {r['library_ms']:.4f} "
+                  f"ms; bound {r['bound_ms']:.4f} ms")
 
     # -- 3. main path: bucketed DSGD-AAU at N=256 ---------------------------
     spec = paper_spec()
@@ -965,9 +1010,11 @@ def main() -> int:
                                if r["dtype"] == "float32"),
             "max_abs_err_bf16": max(r["max_abs_err"] for r in mine
                                     if r["dtype"] == "bfloat16"),
-            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "ms": at["ms"], "device_ms": at["device_ms"],
+            "host_us": at["host_us"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
+            "library_device_ms": at["library_device_ms"],
             "shape": sel,
         })
     print(f"[8] main path events/s: dsgd_aau N=256 sparse_scan {eps_sparse:.1f}, "

@@ -10,6 +10,7 @@
 // stream); nothing here synchronises or allocates.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -103,6 +104,28 @@ template <int K>
 __device__ __forceinline__ void fence_acc(float (&d)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// -- host: a kernel's dynamic shared-memory limit, set once per device --
+
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute costs host time; the limit it sets holds for the
+// process, so a launch site keeps one flag per device (a static of its
+// template instance, zero-initialised) and makes the call only the first
+// time it launches on that device.
+inline cudaError_t smem_limit_once(std::atomic<bool> (&done)[kMaxDevices],
+                                   const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool flagged = dev >= 0 && dev < kMaxDevices;
+  if (flagged && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && flagged)
+    done[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace repro

@@ -224,8 +224,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int Tn, int n_groups, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      swa_attention_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  cudaError_t err = repro::smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(swa_attention_kernel<T, DH>),
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(repro::ceil_div(Tn, BQ)),
@@ -535,8 +536,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   constexpr int bytes = Smem<DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      swa_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  cudaError_t err = repro::smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(swa_attention_kernel<DH>),
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(repro::ceil_div(Tn, BQ)),

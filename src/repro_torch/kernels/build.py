@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("masked_gossip", "gossip_mix", "sparse_gossip", "scatter_rows",
            "linear_scan", "swa_attention")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tf32_mix.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,12 +118,28 @@ def load(name: str,
     return lib
 
 
-def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
-    """Raise if a launch function reported a CUDA error."""
+def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
+    """Call the launch function ``fn`` of ``lib`` with ``args`` and
+    PyTorch's current stream on ``device``, with that device current;
+    raise if it reports a CUDA error.
+
+    The trainer issues thousands of small launches, so the host path is
+    short: the raw stream handle comes from
+    ``torch._C._cuda_getCurrentRawStream`` (what PyTorch's generated code
+    calls; ``torch.cuda.current_stream`` builds a Stream object first), and
+    the device is switched only when another one is current.
+    """
+    f = getattr(lib, fn)
+    index = device.index
+    if index == torch.cuda.current_device():
+        status = f(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            status = f(*args, torch._C._cuda_getCurrentRawStream(index))
     if status != 0:
         msg = lib.repro_cuda_error_string(status).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed with error {status} "
-                           f"({msg})")
+        raise RuntimeError(f"{fn.removesuffix('_launch')}: CUDA launch failed "
+                           f"with error {status} ({msg})")
 
 
 # dtype codes of csrc/common.cuh
@@ -159,8 +175,3 @@ def check_operands(what: str, floats: Mapping[str, torch.Tensor],
         if not t.is_contiguous():
             raise ValueError(f"{what}: {k} must be contiguous")
     return next(iter(devices))
-
-
-def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a raw handle."""
-    return torch.cuda.current_stream(device).cuda_stream

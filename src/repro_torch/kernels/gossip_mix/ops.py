@@ -5,15 +5,18 @@ event: out = Pᵀ·(W − diag(η·mask)·G) for any (N, ...) leaf.  It flattens
 leaf to (N, D), folds the step into a second matrix Q = diag(η·mask)·P in
 the leaf's dtype (as the reference's ops do), and hands (W, G, P, Q) to
 ``masked_gossip_update``, which launches the kernel for CUDA tensors and
-runs the plain PyTorch version for CPU tensors -- nothing else.
+runs the plain PyTorch version for CPU tensors -- nothing else.  The kernel
+is the two-operand-pair case of the gossip_mix kernels' product,
+out = [−Q; P]ᵀ·[G; W].
 
 ``gossip_mix`` is the plain mix out = Pᵀ·W of any (N, ...) leaf (the
 per-event step's mixing after its elementwise gradient step), and
 ``gossip_mix_batched`` the same over E stacked problems, out[e] =
 P[e]ᵀ·W[e] for any (E, N, ...) leaf.  Both run their plain versions for
 CPU tensors and launch the ``gossip_mix`` kernels otherwise.  The kernels
-mask ragged N and D themselves, so nothing is padded here; their wrappers
-allocate the scratch in which the kernel splits Pᵀ into TF32 parts.
+mask ragged N and D themselves, so nothing is padded here; every wrapper
+hands the kernel a scratch, kept per stream and shape, in which it splits
+Pᵀ (and −Qᵀ) into TF32 parts.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 
 _PROTOTYPES = {
-    "masked_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 5
+    "masked_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 6
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
 _MIX_PROTOTYPES = {
@@ -35,11 +38,28 @@ _MIX_PROTOTYPES = {
 }
 
 
-def _split_p_scratch(E: int, N: int, device: torch.device) -> torch.Tensor:
-    """Scratch of the gossip_mix kernels: Pᵀ split into TF32 hi and lo
-    parts, (E, 2, N, Kp) float32 with Kp = N rounded up to 32."""
-    kp = -(-N // 32) * 32
-    return torch.empty((E, 2, N, kp), dtype=torch.float32, device=device)
+_SCRATCH: dict = {}
+
+
+def _split_p_scratch(E: int, N: int, device: torch.device,
+                     pairs: int = 1) -> torch.Tensor:
+    """Scratch of the tensor-core kernels: Pᵀ (after −Qᵀ, for ``pairs=2``)
+    split into TF32 hi and lo parts, (E, 2, N, pairs·Kp) float32 with
+    Kp = N rounded up to 32.
+
+    One buffer per (device, stream, shape), kept for the process: a call's
+    prepass writes it and its main kernel reads it, both on the current
+    stream, so the next call on that stream may write it again.  The dense
+    scan calls the kernel per leaf per event; an allocation per call was
+    host time on a path bound by the host."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    key = (device.index, stream, E, N, pairs)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        kp = -(-N // 32) * 32
+        scratch = _SCRATCH[key] = torch.empty(
+            (E, 2, N, pairs * kp), dtype=torch.float32, device=device)
+    return scratch
 
 
 def masked_gossip_plain(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
@@ -67,12 +87,11 @@ def masked_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.load("masked_gossip", _PROTOTYPES)
-    with torch.cuda.device(dev):
-        status = lib.masked_gossip_launch(
-            build.DTYPE_CODES[W.dtype], W.data_ptr(), G.data_ptr(),
-            P.data_ptr(), Q.data_ptr(), out.data_ptr(), N, D,
-            build.stream_handle(dev))
-    build.check_status(lib, status, "masked_gossip")
+    scratch = _split_p_scratch(1, N, dev, pairs=2)
+    build.launch(
+        lib, "masked_gossip_launch", dev, build.DTYPE_CODES[W.dtype],
+        W.data_ptr(), G.data_ptr(), P.data_ptr(), Q.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), N, D)
     masked_gossip_cuda.launches += 1
     return out
 
@@ -124,11 +143,9 @@ def gossip_mix_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
     scratch = _split_p_scratch(1, N, dev)
-    with torch.cuda.device(dev):
-        status = lib.gossip_mix_launch(
-            build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), N, D, build.stream_handle(dev))
-    build.check_status(lib, status, "gossip_mix")
+    build.launch(
+        lib, "gossip_mix_launch", dev, build.DTYPE_CODES[W.dtype],
+        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, D)
     gossip_mix_cuda.launches += 1
     return out
 
@@ -168,12 +185,10 @@ def gossip_mix_batched_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
     scratch = _split_p_scratch(E, N, dev)
-    with torch.cuda.device(dev):
-        status = lib.gossip_mix_batched_launch(
-            build.DTYPE_CODES[W.dtype], W.data_ptr(), P.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), E, N, D,
-            build.stream_handle(dev))
-    build.check_status(lib, status, "gossip_mix_batched")
+    build.launch(
+        lib, "gossip_mix_batched_launch", dev, build.DTYPE_CODES[W.dtype],
+        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch.data_ptr(), E, N,
+        D)
     gossip_mix_batched_cuda.launches += 1
     return out
 

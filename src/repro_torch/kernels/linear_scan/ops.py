@@ -37,11 +37,9 @@ def linear_scan_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = build.load("linear_scan", _PROTOTYPES)
-    with torch.cuda.device(dev):
-        status = lib.linear_scan_launch(
-            build.DTYPE_CODES[x.dtype], a.data_ptr(), x.data_ptr(),
-            out.data_ptr(), B, T, W, build.stream_handle(dev))
-    build.check_status(lib, status, "linear_scan")
+    build.launch(
+        lib, "linear_scan_launch", dev, build.DTYPE_CODES[x.dtype],
+        a.data_ptr(), x.data_ptr(), out.data_ptr(), B, T, W)
     linear_scan_cuda.launches += 1
     return out
 

@@ -74,12 +74,10 @@ def sparse_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.load("sparse_gossip", _GOSSIP_PROTOTYPES)
-    with torch.cuda.device(dev):
-        status = lib.sparse_gossip_launch(
-            build.DTYPE_CODES[W.dtype], W.data_ptr(), G.data_ptr(),
-            P.data_ptr(), Q.data_ptr(), gidx.data_ptr(), out.data_ptr(),
-            N, A, D, build.stream_handle(dev))
-    build.check_status(lib, status, "sparse_gossip")
+    build.launch(
+        lib, "sparse_gossip_launch", dev, build.DTYPE_CODES[W.dtype],
+        W.data_ptr(), G.data_ptr(), P.data_ptr(), Q.data_ptr(),
+        gidx.data_ptr(), out.data_ptr(), N, A, D)
     sparse_gossip_cuda.launches += 1
     return out
 
@@ -144,11 +142,9 @@ def scatter_rows_cuda(X: torch.Tensor, rows: torch.Tensor,
     if A == 0 or D == 0:
         return X
     lib = build.load("scatter_rows", _SCATTER_PROTOTYPES)
-    with torch.cuda.device(dev):
-        status = lib.scatter_rows_launch(
-            build.DTYPE_CODES[X.dtype], X.data_ptr(), rows.data_ptr(),
-            workers.data_ptr(), N, A, D, build.stream_handle(dev))
-    build.check_status(lib, status, "scatter_rows")
+    build.launch(
+        lib, "scatter_rows_launch", dev, build.DTYPE_CODES[X.dtype],
+        X.data_ptr(), rows.data_ptr(), workers.data_ptr(), N, A, D)
     scatter_rows_cuda.launches += 1
     return X
 

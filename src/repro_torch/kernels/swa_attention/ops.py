@@ -51,12 +51,10 @@ def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = build.load("swa_attention", _PROTOTYPES)
-    with torch.cuda.device(dev):
-        status = lib.swa_attention_launch(
-            build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), BH, T, dh, n_groups, min(window, T),
-            1.0 / math.sqrt(dh), build.stream_handle(dev))
-    build.check_status(lib, status, "swa_attention")
+    build.launch(
+        lib, "swa_attention_launch", dev, build.DTYPE_CODES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, T, dh,
+        n_groups, min(window, T), 1.0 / math.sqrt(dh))
     swa_attention_cuda.launches += 1
     return out
 

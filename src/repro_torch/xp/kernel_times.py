@@ -1,0 +1,138 @@
+"""Times of the trainer's kernels on one source tree, for an A/B of two.
+
+    python src/repro_torch/xp/kernel_times.py [--src DIR]
+
+Imports ``repro_torch`` from ``DIR`` (a tree's ``src`` directory; by
+default the tree this file lies in) and, on one CUDA card, times the kernel
+wrappers that every tree of the port has had since they were ported, at
+``chip_smoke.py``'s phase-2 shapes (read from the ``chip_smoke.py`` beside
+this file's tree) and with the timing functions of this file's tree
+(``repro_torch/profiling.py``), whichever tree is timed:
+
+- ``masked_gossip`` at N = 256, float32, at each leaf width of the paper's
+  2-NN, and summed over the six leaves: the kernel's share of one dense
+  event;
+- ``scatter_rows`` at the bucket rungs A = 16, 64, 256 (all lanes valid)
+  at each leaf width, float32, beside ``index_copy_``;
+- ``gossip_mix`` at N = 256 over the leaf widths and
+  ``gossip_mix_batched`` at E = 32, N = 64, D = 65536, float32.
+
+Each case reports ``device_ms`` (L2 emptied before each call; the count of
+device events per call is held to whole multiples, since the trees'
+kernels may launch different numbers), ``ms`` (CUDA events around
+back-to-back calls) and ``host_us``, as ``chip_smoke.py`` phase 2 does,
+and the library call's ``library_device_ms``.  Prints the card's name and
+power limit, then one JSON object.  Two versions are compared by running
+this script on both trees in one call on one card, in turns (A, B, B, A).
+Needs a CUDA device; builds the kernels it times with the tree's own build
+module.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve()
+ROOT = HERE.parents[3]
+
+
+def _module(name: str, path: Path):
+    """Load the file ``path`` as module ``name``, apart from any tree's
+    package (``profiling.py`` imports nothing of the port)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(smoke, timing) -> dict:
+    import torch
+    from repro_torch.kernels.gossip_mix import ops as gossip_ops
+    from repro_torch.kernels.sparse_gossip import ops as sparse_ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    flush = timing.l2_flush(dev)
+    reps = smoke.REPS
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def figures(fn, library=None) -> dict:
+        row = dict(device_ms=timing.device_ms(fn, reps, flush=flush),
+                   ms=timing.time_ms(fn, reps), host_us=timing.host_us(fn, reps))
+        if library is not None:
+            row.update(library_device_ms=timing.device_ms(library, reps,
+                                                          flush=flush),
+                       library_ms=timing.time_ms(library, reps))
+        return row
+
+    N = smoke.N_MAIN
+    P = torch.rand(N, N, generator=gen) + torch.eye(N)
+    P = (P / P.sum(1, keepdim=True)).to(dev)
+    mask = (torch.rand(N, generator=gen) < 0.5).float().to(dev) * 0.2
+    Q = (mask[:, None] * P).contiguous()
+    out = {"masked_gossip": {}, "gossip_mix": {}, "scatter_rows": {}}
+    for D in smoke.D_LEAVES:
+        W, G = rnd(N, D, scale=0.1), rnd(N, D, scale=0.5)
+        out["masked_gossip"][D] = figures(
+            lambda: gossip_ops.masked_gossip_cuda(W, G, P, Q),
+            lambda: P.T @ W - Q.T @ G)
+        out["gossip_mix"][D] = figures(
+            lambda: gossip_ops.gossip_mix_cuda(W, P),
+            lambda: torch.matmul(P.T, W))
+    for key in ("device_ms", "ms", "library_device_ms"):
+        out["masked_gossip"][f"dense_event_{key}"] = sum(
+            out["masked_gossip"][D][key] for D in smoke.NN_LEAVES)
+    for A in smoke.A_RUNGS:
+        w = torch.randperm(N, generator=gen)[:A].to(dev, torch.int32)
+        wl = w.long()
+        for D in smoke.D_LEAVES:
+            X, rows = rnd(N, D), rnd(A, D)
+            out["scatter_rows"][f"A={A},D={D}"] = figures(
+                lambda: sparse_ops.scatter_rows_cuda(X, rows, w),
+                lambda: X.index_copy_(0, wl, rows))
+    E, n, D = smoke.BATCHED_MAIN
+    Wb = rnd(E, n, D)
+    Pb = torch.rand(E, n, n, generator=gen)
+    Pb = (Pb / Pb.sum(-1, keepdim=True)).to(dev)
+    out["gossip_mix_batched"] = {f"E={E},N={n},D={D}": figures(
+        lambda: gossip_ops.gossip_mix_batched_cuda(Wb, Pb),
+        lambda: torch.bmm(Pb.transpose(1, 2), Wb))}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=Path, default=HERE.parents[2],
+                    help="the src directory of the tree to time")
+    args = ap.parse_args(argv)
+    src = args.src.resolve()
+    smoke = _module("chip_smoke_shapes", ROOT / "chip_smoke.py")
+    timing = _module("kernel_times_profiling",
+                     HERE.parents[1] / "profiling.py")
+    # run as a file, sys.path[0] is this file's directory: the tree's src
+    # takes its place, so repro_torch is imported from that tree alone
+    sys.path[0] = str(src)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA device")
+    import repro_torch
+    if Path(repro_torch.__file__).resolve().parents[1] != src:
+        raise SystemExit(f"kernel_times: imported {repro_torch.__file__}, "
+                         f"not the tree under {src}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "--id=0"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}")
+    print(json.dumps({"src": str(src), "card": card,
+                      **measure(smoke, timing)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,7 +41,11 @@ def _close(a, b, dt):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(3, 7), (16, 1000), (65, 513), (256, 2560)])
+@pytest.mark.parametrize("n,d", [(3, 7), (16, 1000), (65, 513), (256, 2560),
+                                 # N off a multiple of 32: each half of the
+                                 # stacked reduction is padded on its own
+                                 (3, 4097), (33, 4097), (65, 10), (100, 10),
+                                 (100, 4096), (256, 10), (256, 65536)])
 def test_masked_gossip_kernel_matches_plain(cuda, n, d, dt):
     g = torch.Generator().manual_seed(n + d)
     W = torch.randn(n, d, generator=g).to(cuda, dt)
@@ -56,6 +60,69 @@ def test_masked_gossip_kernel_matches_plain(cuda, n, d, dt):
     out2 = gossip_ops.masked_gossip_update(W, G, P, Q)
     assert gossip_ops.masked_gossip_cuda.launches == before + 2
     assert torch.equal(out, out2)
+
+
+def _offset(rows, cols, g, cuda, dt, offset=1):
+    """A contiguous (rows, cols) view whose data starts ``offset`` elements
+    into its buffer: not 16-byte aligned for offset 1."""
+    base = torch.randn(rows * cols + offset, generator=g).to(cuda, dt)
+    return base[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(33, 4096), (256, 2560)])
+def test_masked_gossip_offset_views(cuda, n, d, dt):
+    """W or G off a 16-byte boundary: the kernel copies 4 bytes (float32)
+    or loads elements (bfloat16) instead of 16-byte vectors."""
+    g = torch.Generator().manual_seed(3 * n + d)
+    P = torch.rand(n, n, generator=g).to(cuda, dt)
+    Q = (torch.rand(n, n, generator=g) * 0.1).to(cuda, dt)
+    for w_off, g_off in ((1, 0), (0, 1)):
+        W = _offset(n, d, g, cuda, dt, w_off)
+        G = _offset(n, d, g, cuda, dt, g_off)
+        assert (W.data_ptr() | G.data_ptr()) % 16
+        out = gossip_ops.masked_gossip_cuda(W, G, P, Q)
+        _close(out, gossip_ops.masked_gossip_plain(W, G, P, Q), dt)
+
+
+@pytest.mark.parametrize("d", [4096, 4097])
+def test_masked_gossip_stays_near_the_exact_product(cuda, d):
+    """Unnormalised P (outputs of order 10) and a Q of scale 0.1: the
+    float32 kernel stays within 2e-5 of the float64 product."""
+    n = 256
+    g = torch.Generator().manual_seed(d)
+    W, G = (torch.randn(n, d, generator=g).to(cuda) for _ in range(2))
+    P = torch.rand(n, n, generator=g).to(cuda)
+    Q = (torch.rand(n, n, generator=g) * 0.1).to(cuda)
+    exact = P.double().T @ W.double() - Q.double().T @ G.double()
+    out = gossip_ops.masked_gossip_cuda(W, G, P, Q)
+    assert float((out.double() - exact).abs().max()) <= 2e-5
+
+
+def test_masked_gossip_scratch_is_kept_per_stream(cuda):
+    """The split scratch is reused by later calls on one stream and is a
+    buffer of its own on another: calls queued on two streams at once, each
+    with its own P and Q, each match the plain version."""
+    n, d = 100, 4097
+    g = torch.Generator().manual_seed(11)
+    W, G = (torch.randn(n, d, generator=g).to(cuda) for _ in range(2))
+    Ps = [torch.rand(n, n, generator=g).to(cuda) for _ in range(2)]
+    Qs = [(torch.rand(n, n, generator=g) * 0.1).to(cuda) for _ in range(2)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(4):
+        outs[0].append(gossip_ops.masked_gossip_cuda(W, G, Ps[0], Qs[0]))
+        with torch.cuda.stream(side):
+            outs[1].append(gossip_ops.masked_gossip_cuda(W, G, Ps[1], Qs[1]))
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    keys = [k for k in gossip_ops._SCRATCH if k[2:] == (1, n, 2)]
+    assert len({k[1] for k in keys}) >= 2
+    for i in range(2):
+        ref = gossip_ops.masked_gossip_plain(W, G, Ps[i], Qs[i])
+        for out in outs[i]:
+            _close(out, ref, torch.float32)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -117,6 +184,38 @@ def test_sparse_kernels_match_plain(cuda, a, dt):
     sparse_ops.scatter_active_rows(X1, rows, w)
     sparse_ops.scatter_rows_plain(X2, rows, w)
     assert torch.equal(X1, X2)
+
+
+@pytest.mark.parametrize("dt,d,a,offset", [
+    (torch.float32, 1001, 16, 0),     # D % 4 != 0: 4-byte copies
+    (torch.bfloat16, 1004, 16, 0),    # D % 8 != 0: 2-byte copies
+    (torch.bfloat16, 10, 2, 0),
+    (torch.float32, 4096, 16, 1),     # offset views of X and rows
+    (torch.bfloat16, 4096, 64, 1),
+    (torch.float32, 65536, 2, 0),     # the fused path's width
+    (torch.float32, 65536, 64, 0),    # the main shape: 16-byte copies
+    (torch.bfloat16, 2560, 256, 0)])
+def test_scatter_rows_copies_exactly(cuda, dt, d, a, offset):
+    """Valid lanes copy their rows bit for bit, -1 in any lane writes
+    nothing, and all lanes -1 leave X as it was."""
+    n = 256
+    g = torch.Generator().manual_seed(d + a + offset)
+    w = torch.randperm(n, generator=g)[:a]
+    w[torch.randperm(a, generator=g)[:max(1, a // 3)]] = -1
+    w = w.to(torch.int32).to(cuda)
+    X = _offset(n, d, g, cuda, dt, offset)
+    rows = _offset(a, d, g, cuda, dt, offset)
+    assert bool(X.data_ptr() % 16) == bool(offset)
+    ref = sparse_ops.scatter_rows_plain(X.clone(), rows, w)
+    before = sparse_ops.scatter_rows_cuda.launches
+    sparse_ops.scatter_rows_cuda(X, rows, w)
+    assert sparse_ops.scatter_rows_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(X, ref)
+    kept = X.clone()
+    sparse_ops.scatter_rows_cuda(X, rows, torch.full_like(w, -1))
+    torch.cuda.synchronize()
+    assert torch.equal(X, kept)
 
 
 def test_all_pad_row_writes_nothing(cuda):

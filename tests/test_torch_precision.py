@@ -10,6 +10,10 @@ oracles at the tolerances the card is held to:
   hi = round_tf32(x) and lo = round_tf32(x − hi)) accumulated in float32.
   That stays within float32 atol 2e-5 / rtol 1e-4 of the reference; one
   TF32 pass does not, which is why the split is needed.
+* ``masked_gossip`` runs the same body as one reduction of depth 2·Kp over
+  [−Q; P] and [G; W] stacked along k, each half zero-padded from N to Kp
+  on its own, every 32-row slab summed into a fresh float32 partial that
+  is added to the total: within the same bound of the reference.
 * ``swa_attention`` (bfloat16) rounds the probabilities to bfloat16 before
   the PV product.  An online softmax over 64-key tiles in float32 with that
   rounding stays within ``chip_smoke.py``'s bf16 bound for the kernel
@@ -24,11 +28,13 @@ import pytest
 import torch
 
 from repro.kernels.gossip_mix.ref import gossip_mix_ref as jax_mix_ref
+from repro.kernels.gossip_mix.ref import masked_gossip_ref as jax_masked_ref
 from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 SWA_BF16_TOL = dict(atol=5e-3, rtol=1e-2)
-MMA_K = 8          # depth of one mma.sync m16n8k8 TF32 step
+MMA_K = 8          # depth of one TF32 MMA step (mma.sync m16n8k8, wgmma k8)
+SLAB = 32          # values of k per float32 partial sum of the wgmma body
 KEY_TILE = 64      # keys per tile of the bf16 attention kernel
 
 _jit_swa_ref = jax.jit(jax_swa_ref, static_argnames=("window", "n_groups"))
@@ -62,6 +68,33 @@ def _tf32_mix(W: np.ndarray, P: np.ndarray, terms: int) -> np.ndarray:
     return acc
 
 
+def _tf32_masked_mix(W, G, P, Q, terms: int) -> np.ndarray:
+    """Pᵀ·W − Qᵀ·G as the shared wgmma body computes it: B = [−Q; P] and
+    A = [G; W] stacked along k, each half zero-padded from N to Kp on its
+    own; per slab of 32 values of k a fresh float32 partial sum, fed the
+    small terms (a_lo·b_hi, a_hi·b_lo) of the slab's four k-steps before
+    their a_hi·b_hi; the partial added to the float32 total."""
+    n, d = W.shape
+    kp = -(-n // SLAB) * SLAB
+    B = np.zeros((2 * kp, n), dtype=np.float32)
+    A = np.zeros((2 * kp, d), dtype=np.float32)
+    B[:n], B[kp:kp + n] = -Q, P
+    A[:n], A[kp:kp + n] = G, W
+    (A_hi, A_lo), (B_hi, B_lo) = _tf32_parts(A), _tf32_parts(B)
+    total = np.zeros((n, d), dtype=np.float32)
+    for s0 in range(0, 2 * kp, SLAB):
+        part = np.zeros((n, d), dtype=np.float32)
+        steps = [slice(k, k + MMA_K) for k in range(s0, s0 + SLAB, MMA_K)]
+        order = ([x for ks in steps
+                  for x in ((A_lo, B_hi, ks), (A_hi, B_lo, ks))]
+                 if terms == 3 else []) + [(A_hi, B_hi, ks) for ks in steps]
+        for a, b, ks in order:
+            step = b[ks].astype(np.float64).T @ a[ks].astype(np.float64)
+            part = (part + step.astype(np.float32)).astype(np.float32)
+        total = (total + part).astype(np.float32)
+    return total
+
+
 def test_round_tf32_keeps_ten_mantissa_bits():
     x = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
                   -(1.0 + 2.0 ** -11), 3.0e-3], dtype=np.float32)
@@ -91,6 +124,33 @@ def test_three_tf32_products_hold_float32_parity(n, d):
     one = _tf32_mix(W, P, terms=1)
     assert not np.allclose(one, ref, **FP32_TOL)
     assert np.abs(one - ref).max() > 5 * np.abs(three - ref).max()
+
+
+@pytest.mark.parametrize("n,d,stochastic", [(8, 300, True), (65, 129, True),
+                                            (256, 40, True), (256, 40, False)])
+def test_masked_three_tf32_products_hold_float32_parity(n, d, stochastic):
+    """The masked form on the stacked operands, N not a multiple of 32
+    included, against the reference; with an unnormalised P (outputs of
+    order 10) also within the float32 bound of the float64 product."""
+    rng = np.random.default_rng(n + d + stochastic)
+    P = rng.random((n, n)).astype(np.float32)
+    if stochastic:
+        P = P + np.eye(n, dtype=np.float32)
+        P = (P / P.sum(axis=1, keepdims=True)).astype(np.float32)
+    # η·mask of a dense event, or a Q of scale 0.1 beside the unnormalised P
+    mask = ((rng.random(n) < 0.5) * 0.2 if stochastic
+            else rng.random(n) * 0.1).astype(np.float32)
+    Q = (mask[:, None] * P).astype(np.float32)
+    W = rng.normal(size=(n, d)).astype(np.float32)
+    G = rng.normal(size=(n, d)).astype(np.float32)
+    ref = np.asarray(jax_masked_ref(*(jnp.asarray(x) for x in (W, G, P, mask))))
+    three = _tf32_masked_mix(W, G, P, Q, terms=3)
+    np.testing.assert_allclose(three, ref, **FP32_TOL)
+    exact = P.T.astype(np.float64) @ W - Q.T.astype(np.float64) @ G
+    assert np.abs(three - exact).max() <= FP32_TOL["atol"]
+    # one TF32 pass misses the float32 bound here too
+    one = _tf32_masked_mix(W, G, P, Q, terms=1)
+    assert not np.allclose(one, ref, **FP32_TOL)
 
 
 def _bf16(x: np.ndarray) -> torch.Tensor:
