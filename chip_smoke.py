@@ -14,15 +14,20 @@ non-zero, printing no result, when there is none or when any phase fails:
    the same function where one exists -- per call (CUDA events) and, for
    the kernel and the library call, as device time alone (a profiled run,
    L2 emptied before each call, each call's device events counted) and
-   the kernel's host issue time; ``masked_gossip`` and ``gossip_mix``
-   also against the float64 product where outputs are of order 10, and
-   ``masked_gossip`` summed over the 2-NN's six leaves (``gossip_mix`` and
+   the kernel's host issue time; ``masked_gossip``, ``gossip_mix`` and
+   ``sparse_gossip`` (A=256 gathered from N=512) also against the float64
+   product where outputs are of order 10, and ``masked_gossip`` summed
+   over the 2-NN's six leaves (``sparse_gossip`` and ``scatter_rows`` at
+   A = 2, 16, 64, 256 with all, some and no lanes valid, and the main
+   path's merged rows at A = 64; ``gossip_mix`` and
    ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32, ``gossip_mix``
    timed at every leaf width of the 2-NN; ``swa_attention`` over T 1-4096
    with the serve waves' padded lengths, windows 1 to past T, dh 64-256);
 3. the main path: DSGD-AAU at N=256 with the full 2-NN through the bucketed
    active-set path (``sparse_scan``, rungs 16/64/256), 1024 events, with the
-   kernels' launch counters set to 0 just before and read just after;
+   kernels' launch counters set to 0 just before and read just after, and
+   the (A, valid lanes) of every ``sparse_gossip`` launch and the cliques'
+   sizes recorded;
 4. the dense path: synchronous DSGD at N=256 through the dense scan, 160
    events, counters likewise;
 5. card vs CPU: DSGD-AAU at N=64 on both from the same W0;
@@ -78,7 +83,8 @@ NN_LEAVES = (16384, 256, 65536, 256, 2560, 10)   # the 2-NN's leaf widths
 D_LEAVES = (16384, 65536, 256, 2560, 10)   # each width once
 REPS = 200                                 # calls per timing of a small kernel
 N_MAIN = 256
-A_RUNGS = (16, 64, 256)
+A_RUNGS = (2, 16, 64, 256)                # the fused path's width, the ladder
+MERGED_A = 64                              # merged rows' width on the main path
 ARCH = "recurrentgemma-2b"
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
 SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
@@ -158,21 +164,39 @@ def close(out, ref, dtype: str, tols: dict = TOL) -> float:
 # ---------------------------------------------------------------------------
 
 def lanes(gen, A: int, n: int, device, kind: str):
-    """(A,) int32 workers: distinct, worker 0 active, ~1/4 of the lanes
-    padded with -1 at random positions (``pads``), none padded (``full``),
-    or all padded (``all_pad``)."""
+    """(A,) int32 workers and the (A, A) block mask of P_sub: distinct
+    workers, worker 0 active, ~1/4 of the lanes padded with -1 at random
+    positions (``pads``), none padded (``full``), all padded (``all_pad``),
+    or ``merged`` as ``merge_event_groups`` packs a row of the main path:
+    the valid lanes of cliques of 3-8 workers, one after another from lane
+    0 while they fit, then -1 lanes, with a block-diagonal P_sub (one block
+    per clique).  The mask is all ones but for ``merged``."""
     import torch
+    block = torch.ones(A, A)
     if kind == "all_pad":
-        return torch.full((A,), -1, dtype=torch.int32, device=device)
+        return torch.full((A,), -1, dtype=torch.int32, device=device), block
     perm = torch.randperm(n - 1, generator=gen)[:A - 1] + 1
     w = torch.cat([torch.zeros(1, dtype=torch.int64), perm])
+    if kind == "merged":
+        clique = torch.full((A,), -1, dtype=torch.int64)
+        o = c = 0
+        while True:
+            m = int(torch.randint(3, 9, (1,), generator=gen))
+            if o + m > A:
+                break
+            clique[o:o + m] = c
+            o, c = o + m, c + 1
+        w[o:] = -1
+        block = ((clique[:, None] == clique[None, :])
+                 & (clique[:, None] >= 0)).float()
+        return w.to(torch.int32).to(device), block
     w = w[torch.randperm(A, generator=gen)]
     if kind == "pads":
         pad = torch.randperm(A, generator=gen)[:max(1, A // 4)]
         keep0 = (w[pad] == 0)
         pad = pad[~keep0]           # worker 0 stays active
         w[pad] = -1
-    return w.to(torch.int32).to(device)
+    return w.to(torch.int32).to(device), block
 
 
 def check_kernels(device) -> dict:
@@ -243,18 +267,46 @@ def check_kernels(device) -> dict:
             require(e_k <= TOL["float32"]["atol"],
                     f"masked_gossip is {e_k} from the exact product")
             del W, G, Pu, Qu, exact
+        if dname == "float32":
+            # sparse_gossip at A = 256 runs masked_gossip's tensor-core sums
+            # on gathered rows: the same float64 gate
+            g64 = torch.Generator().manual_seed(4)
+            n_carry, A, D = 2 * N, N, 16384
+            W = torch.randn(n_carry, D, generator=g64).to(device)
+            G = torch.randn(A, D, generator=g64).to(device)
+            Pu = torch.rand(A, A, generator=g64).to(device)
+            Qu = (torch.rand(A, A, generator=g64) * 0.1).to(device)
+            gidx = torch.randperm(n_carry, generator=g64)[:A].to(device,
+                                                               torch.int32)
+            Wa = W.double().index_select(0, gidx.long())
+            exact = Pu.double().T @ Wa - Qu.double().T @ G.double()
+            e_k = float((sparse_ops.sparse_gossip_cuda(W, G, Pu, Qu, gidx)
+                         .double() - exact).abs().max())
+            e_p = float((sparse_ops.sparse_gossip_plain(W, G, Pu, Qu, gidx)
+                         .double() - exact).abs().max())
+            print(f"[2] sparse_gossip float32 against float64, A={A} gathered "
+                  f"from N={n_carry}, D={D}, P uniform on [0, 1), Q on "
+                  f"[0, 0.1): kernel {e_k:.3e}, plain (cuBLAS) {e_p:.3e}")
+            require(e_k <= TOL["float32"]["atol"],
+                    f"sparse_gossip is {e_k} from the exact product")
+            del W, G, Pu, Qu, Wa, exact
         # sparse_gossip and scatter_rows at the bucket rungs
         for A in A_RUNGS:
-            for kind in ("full", "pads", "all_pad"):
-                w = lanes(gen, A, N, device, kind)
+            kinds = ("full", "pads", "all_pad") + (
+                ("merged",) if A == MERGED_A else ())
+            kernels_per_call = sparse_ops.sparse_gossip_kernels(A)
+            for kind in kinds:
+                w, block = lanes(gen, A, N, device, kind)
                 valid = w >= 0
                 vf = valid.float()
-                Ps = stochastic(A) * vf[:, None] * vf[None, :]
+                Ps = (stochastic(A) * block.to(device) * vf[:, None]
+                      * vf[None, :])
                 ms_ = (torch.rand(A, generator=gen) < 0.7).float().to(device) * 0.2 * vf
                 Ps_d = Ps.to(dt).contiguous()
                 Qs = ((ms_ * vf).to(dt)[:, None] * Ps_d).contiguous()
                 gidx = torch.where(valid, w, 0).to(torch.int32).contiguous()
                 n_valid = int(valid.sum())
+                pairs = int((Ps != 0).sum())     # (a, b) the data multiplies
                 for D in D_LEAVES:
                     W = rnd(N, D, scale=0.1).to(dt)
                     G = rnd(A, D, scale=0.5).to(dt)
@@ -276,25 +328,26 @@ def check_kernels(device) -> dict:
                                 "scatter_rows: an all-pad row wrote the carry")
                     s = W.element_size()
                     b, by = bound_ms(3 * n_valid * D * s + 2 * A * A * s + 4 * A,
-                                     4.0 * n_valid * n_valid * D, dname,
-                                     PRODUCT_FLOPS)
+                                     4.0 * pairs * D, dname, PRODUCT_FLOPS)
                     wv = w[valid].long()
                     gv = out[valid]
                     row = dict(kernel="sparse_gossip", dtype=dname, N=N, A=A,
-                               D=D, lanes=kind, max_abs_err=err, bound_ms=b,
-                               bound_by=by)
+                               D=D, lanes=kind, valid=n_valid,
+                               kernels=kernels_per_call, max_abs_err=err,
+                               bound_ms=b, bound_by=by)
                     row_s = dict(kernel="scatter_rows", dtype=dname, N=N, A=A,
                                  D=D, lanes=kind, max_abs_err=err_s)
                     row_s["bound_ms"], row_s["bound_by"] = bound_ms(
                         2 * n_valid * D * s + 4 * A, 0.0, dname)
-                    if kind == "full" or (kind == "pads" and D == 65536):
+                    if kind == "full" or (kind in ("pads", "merged")
+                                          and D == 65536):
                         row.update(timings(
                             lambda: sparse_ops.sparse_gossip_cuda(
                                 W, G, Ps_d, Qs, gidx), REPS,
                             lambda: sparse_ops.sparse_gossip_plain(
                                 W, G, Ps_d, Qs, gidx), REPS,
                             lambda: Ps_d.T @ W.index_select(0, gidx.long())
-                            - Qs.T @ G))
+                            - Qs.T @ G, launches=kernels_per_call))
                         row_s.update(timings(
                             lambda: sparse_ops.scatter_rows_cuda(Xk, out, w), REPS,
                             lambda: sparse_ops.scatter_rows_plain(Xp, out, w), REPS,
@@ -512,21 +565,77 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-def drive(trainer, max_events: int, eval_every: int):
-    """Set up, then run once with the launch counters zeroed just before;
-    returns (result, set-up s, run wall s, launch counts of the run)."""
+def drive(trainer, max_events: int, eval_every: int, active_sets=None):
+    """Set up, then run once with the launch counters (and ``active_sets``,
+    where given) zeroed just before; returns (result, set-up s, run wall s,
+    launch counts of the run)."""
     import torch
     t0 = time.perf_counter()
     trainer.warmup(max_events=max_events)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     reset_counts()
+    if active_sets is not None:
+        active_sets.clear()
     t0 = time.perf_counter()
     res = trainer.run(max_events=max_events, eval_every=eval_every)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     return res, setup, wall, counts
+
+
+class ActiveSets:
+    """The (A, valid lanes) of every active-set row the trainer dispatches,
+    and the size of every clique in them, read from the host's
+    ``SparseEventBatch`` as ``_dispatch_sparse_block`` receives it (each
+    row launches ``sparse_gossip`` once per leaf; a merged row's cliques
+    are its lanes grouped by source event).  Installed around one run; the
+    hook reads host arrays only, so it adds no device work or sync."""
+
+    def __init__(self):
+        from collections import Counter
+        self.rows, self.cliques = Counter(), Counter()
+
+    def __enter__(self):
+        import numpy as np
+        from repro_torch.core.runner import DecentralizedTrainer
+        self._cls = DecentralizedTrainer
+        self._orig = orig = DecentralizedTrainer._dispatch_sparse_block
+        rows, cliques = self.rows, self.cliques
+
+        def recorded(tr, batch, rounds, lane_off=None):
+            w = np.asarray(batch.workers)
+            for e in range(w.shape[0]):
+                valid = w[e] >= 0
+                n = int(valid.sum())
+                if n == 0:
+                    continue           # a no-op row: skipped, no launch
+                rows[(int(w.shape[1]), n)] += 1
+                if lane_off is None:
+                    cliques[n] += 1
+                else:
+                    _, sizes = np.unique(np.asarray(lane_off)[e][valid],
+                                         return_counts=True)
+                    for m in sizes:
+                        cliques[int(m)] += 1
+            return orig(tr, batch, rounds, lane_off)
+
+        DecentralizedTrainer._dispatch_sparse_block = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._dispatch_sparse_block = self._orig
+        return False
+
+    def clear(self):
+        self.rows.clear()
+        self.cliques.clear()
+
+    def median_clique(self) -> float:
+        import numpy as np
+        sizes = np.repeat(list(self.cliques), list(self.cliques.values()))
+        return float(np.median(sizes)) if len(sizes) else float("nan")
 
 
 def check_history(res, what: str):
@@ -875,6 +984,15 @@ def main() -> int:
                   f"width): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
                   f"torch.matmul {r['library_ms']:.4f} ms (device "
                   f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms")
+        if (r["kernel"] == "sparse_gossip" and "ms" in r and r["D"] == 65536
+                and r["dtype"] == "float32"):
+            print(f"[2] sparse_gossip A={r['A']} D={r['D']} {r['lanes']} "
+                  f"({r['valid']} valid, {r['kernels']} device kernels a call): "
+                  f"device (L2 cold) {r['device_ms']:.4f} ms, call "
+                  f"{r['ms']:.4f} ms, host {r['host_us']:.1f} us; library "
+                  f"device {r['library_device_ms']:.4f} ms, call "
+                  f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
         if r["kernel"] == "scatter_rows" and "ms" in r and r["dtype"] == "float32":
             print(f"[2] scatter_rows A={r['A']} D={r['D']} {r['lanes']}: device "
                   f"(L2 cold) {r['device_ms']:.4f} ms, call {r['ms']:.4f} ms, host "
@@ -889,7 +1007,8 @@ def main() -> int:
     require(tr.mode == "sparse_scan", f"main path took mode {tr.mode}")
     require(tr.scheduler.active_buckets() == (16, 64, 256),
             f"unexpected ladder {tr.scheduler.active_buckets()}")
-    res, setup, wall, counts_sparse = drive(tr, 1024, 256)
+    with ActiveSets() as active:
+        res, setup, wall, counts_sparse = drive(tr, 1024, 256, active)
     check_history(res, "dsgd_aau N=256")
     print(f"[3] dsgd_aau N={N_MAIN} sparse_scan: {res.total_events} events in "
           f"{wall:.3f} s = {res.total_events / wall:.1f} events/s "
@@ -899,6 +1018,19 @@ def main() -> int:
         for p in res.history))
     require(counts_sparse["sparse_gossip"] > 0 and counts_sparse["scatter_rows"] > 0,
             f"the main path launched no active-set kernel: {counts_sparse}")
+    n_leaves = len(tr.W)
+    print(f"[3] sparse_gossip launches by (A, valid lanes), {n_leaves} per "
+          f"row: " + ", ".join(f"({a}, {v}): {c * n_leaves}" for (a, v), c
+                               in sorted(active.rows.items())))
+    by_rung = {}
+    for (a, v), c in active.rows.items():
+        by_rung[a] = by_rung.get(a, 0) + c * n_leaves
+    print(f"[3] sparse_gossip launches by A: {dict(sorted(by_rung.items()))}; "
+          f"cliques (workers: count) {dict(sorted(active.cliques.items()))}, "
+          f"median {active.median_clique()}")
+    require(sum(by_rung.values()) == counts_sparse["sparse_gossip"],
+            f"rows recorded {by_rung} do not account for the "
+            f"{counts_sparse['sparse_gossip']} sparse_gossip launches")
     require(res.history[-1].loss < res.history[0].loss,
             "the loss did not fall on the main path")
     eps_sparse = res.total_events / wall

@@ -49,8 +49,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.gossip_mix.ops import gossip_mix, masked_gossip_mix
-from repro_torch.kernels.sparse_gossip.ops import (scatter_active_rows,
-                                                  sparse_gossip_rows)
+from repro_torch.kernels.sparse_gossip.ops import (active_set_operands,
+                                                  mix_active_leaf,
+                                                  scatter_active_rows)
 from repro_torch.utils.tree import Params
 
 Carry = Tuple[Params, Params, torch.Tensor, torch.Tensor]
@@ -247,10 +248,16 @@ def sparse_event_update(W: Params, S: Params, y: torch.Tensor,
     batches = select_pool_batch_at(pools, gidx, ptra)
     grads = torch.func.vmap(grad_fn)(Sa, batches)
     scaled = eta * (gm & valid).to(torch.float32)
-    # -- compute: P_subᵀ·(W_a − η·mask⊙G), one sparse_gossip launch per leaf
-    Wn = {k: sparse_gossip_rows(w, grads[k], P_sub.to(w.dtype),
-                                scaled.to(w.dtype), workers)
-          for k, w in W.items()}
+    # -- compute: P_subᵀ·(W_a − η·mask⊙G), one sparse_gossip launch per
+    # leaf; the masked P, folded Q and indices are the event's, built once
+    # per dtype of the leaves
+    operands = {}
+    Wn = {}
+    for k, w in W.items():
+        if w.dtype not in operands:
+            operands[w.dtype] = active_set_operands(
+                P_sub.to(w.dtype), scaled.to(w.dtype), workers, w.dtype)
+        Wn[k] = mix_active_leaf(w, grads[k], *operands[w.dtype])
     ya = torch.einsum("a,ab->b", y.index_select(0, gidx), P_sub.to(y.dtype))
     Sn = {k: torch.where(_expand(rm, Wn[k]) > 0, Wn[k], sa)
           for k, sa in Sa.items()}

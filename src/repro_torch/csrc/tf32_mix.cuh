@@ -1,12 +1,17 @@
-// The 3xTF32 wgmma product shared by gossip_mix.cu and masked_gossip.cu:
+// The 3xTF32 wgmma product shared by gossip_mix.cu, masked_gossip.cu and
+// sparse_gossip.cu:
 //
 //   out[e] = P[e]ᵀ·W[e]                (one operand pair: gossip_mix)
 //   out    = Pᵀ·W − Qᵀ·G = [−Q; P]ᵀ·[G; W]   (two pairs: masked_gossip)
+//   out    = Pᵀ·W[gidx] − Qᵀ·G              (two pairs, W's rows gathered:
+//                                             sparse_gossip)
 //
 // W, G, out are (N, D) worker-stacked leaves (E of them for the batched
 // mix), P, Q (N, N); the sum runs in float32 and is rounded once to W's
 // dtype.  The two-pair product is one reduction of depth 2N over the
 // stacked operands, so it runs the one-pair body with twice the slabs.
+// Gathered, N is the number of lanes A and W may hold any number of rows:
+// row k of the W half is W[gidx[k]], gidx clamped into W's rows.
 //
 // Precision.  The port holds float32 parity with the reference (atol 2e-5
 // / rtol 1e-4), which one TF32 pass does not meet.  Each float32 operand x
@@ -38,7 +43,10 @@
 //   copies where D and every pointer allow, else 4-byte copies for float32
 //   and plain loads for bfloat16): with two pairs slab kt < Kp/32 copies
 //   rows of G, a later slab rows of W, each from its own pointer, so the
-//   stacked [G; W] never exists in device memory.  Each thread loads its A fragment from
+//   stacked [G; W] never exists in device memory.  Gathered, the block
+//   first copies gidx (clamped) into a table of Kp ints in shared memory,
+//   and a W slab's row k is copied from row table[k]; the G half and the
+//   order of k are as in masked_gossip.  Each thread loads its A fragment from
 //   shared memory, splits it in registers and hands it to wgmma m64n64k8.
 //   The A rows (d) are permuted so that each thread's four rows are
 //   contiguous: its fragment of a k is one vector load, free of bank
@@ -97,10 +105,17 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 
 // Copy rows r0 .. r0 + ROWS and columns c0 .. c0 + COLS of a row-major
 // (n_rows, n_cols) matrix into dst (row length LD), zero outside it.
-template <typename T, int ROWS, int COLS, int LD, bool VEC>
+// GATHER: slab row r is the source's row table[r0 + r] (shared memory,
+// valid for every r0 + r below the slab's end) instead of row r0 + r.
+template <typename T, int ROWS, int COLS, int LD, bool VEC, bool GATHER = false>
 __device__ __forceinline__ void load_slab(T* dst, const T* src, int r0,
                                           int n_rows, long long c0,
-                                          long long n_cols, int tid) {
+                                          long long n_cols, int tid,
+                                          const int* table = nullptr) {
+  auto row = [&](int r) -> long long {
+    if constexpr (GATHER) return table[r0 + r];
+    else return r0 + r;
+  };
   if constexpr (VEC) {      // n_cols is a multiple of a 16-byte chunk
     constexpr int EPC = 16 / sizeof(T);
     constexpr int CPR = COLS / EPC;
@@ -108,8 +123,7 @@ __device__ __forceinline__ void load_slab(T* dst, const T* src, int r0,
     for (int c = tid; c < ROWS * CPR; c += THREADS) {
       const int r = c / CPR, cc = (c % CPR) * EPC;
       const bool ok = r0 + r < n_rows && c0 + cc < n_cols;
-      const T* g = ok ? src + static_cast<long long>(r0 + r) * n_cols + c0 + cc
-                      : src;
+      const T* g = ok ? src + row(r) * n_cols + c0 + cc : src;
       cp_async16(smem_addr(dst + r * LD + cc), g, ok ? 16 : 0);
     }
   } else {
@@ -117,7 +131,7 @@ __device__ __forceinline__ void load_slab(T* dst, const T* src, int r0,
     for (int c = tid; c < ROWS * COLS; c += THREADS) {
       const int r = c / COLS, cc = c % COLS;
       const bool ok = r0 + r < n_rows && c0 + cc < n_cols;
-      const long long at = static_cast<long long>(r0 + r) * n_cols + c0 + cc;
+      const long long at = row(r) * n_cols + c0 + cc;
       if constexpr (sizeof(T) == 4) {
         cp_async4(dst + r * LD + cc, ok ? src + at : src, ok ? 4 : 0);
       } else {
@@ -209,11 +223,14 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 
 // outᵀ = [W; G]ᵀ·B over nk = PAIRS·Kp/BK slabs; G is read only when
 // PAIRS == 2 (a template parameter, so that the one-pair body keeps no G).
-template <typename T, bool VEC, int PAIRS>
+// GATHER (two pairs, E = 1): the W half reads row gidx[k] of W's n_w rows
+// for k < N, each index clamped into [0, n_w).
+template <typename T, bool VEC, int PAIRS, bool GATHER>
 __global__ void __launch_bounds__(THREADS, 1)
 mix_kernel(const T* __restrict__ W, const T* __restrict__ G,
            const float* __restrict__ Bt, T* __restrict__ out, int N, int D,
-           int Kp, int n_jt) {
+           int Kp, int n_jt, const int* __restrict__ gidx, int n_w) {
+  static_assert(!GATHER || PAIRS == 2, "the gather is of the W half of two");
   using L = Smem<T>;
   constexpr int SPLIT = std::is_same<T, float>::value ? 3 : 1;
   constexpr int NACC = BJ / 2;    // accumulator registers of an m64 tile
@@ -239,6 +256,13 @@ mix_kernel(const T* __restrict__ W, const T* __restrict__ G,
   const long long d0 = static_cast<long long>(blockIdx.x / n_jt) * BD;
   const int nk_half = Kp / BK;
   const int nk = PAIRS * nk_half;
+  // the gather's row table, after the stages (Kp ints: rows N .. Kp pad)
+  int* table = reinterpret_cast<int*>(smem + STAGES * L::STAGE);
+  if constexpr (GATHER) {
+    for (int k = tid; k < Kp; k += THREADS)
+      table[k] = k < N ? min(max(gidx[k], 0), n_w - 1) : 0;
+    __syncthreads();
+  }
 
   auto load = [&](int kt) {
     unsigned char* st = smem + (kt % STAGES) * L::STAGE;
@@ -254,11 +278,20 @@ mix_kernel(const T* __restrict__ W, const T* __restrict__ G,
                  src, ok ? 16 : 0);
     }
     // A: with two pairs rows of G for the first Kp values of k, then rows
-    // of W; with one, rows of W
+    // of W (gathered through the table); with one, rows of W
     const bool step = PAIRS == 2 && kt < nk_half;
-    load_slab<T, BK, BD, L::LDW, VEC>(
-        reinterpret_cast<T*>(st + 2 * L::B_TILE), step ? G : W,
-        (kt - (PAIRS == 2 && !step ? nk_half : 0)) * BK, N, d0, D, tid);
+    T* a_dst = reinterpret_cast<T*>(st + 2 * L::B_TILE);
+    const int r0 = (kt - (PAIRS == 2 && !step ? nk_half : 0)) * BK;
+    if constexpr (GATHER) {
+      if (step)
+        load_slab<T, BK, BD, L::LDW, VEC>(a_dst, G, r0, N, d0, D, tid);
+      else
+        load_slab<T, BK, BD, L::LDW, VEC, true>(a_dst, W, r0, N, d0, D, tid,
+                                                table);
+    } else {
+      load_slab<T, BK, BD, L::LDW, VEC>(a_dst, step ? G : W, r0, N, d0, D,
+                                        tid);
+    }
   };
 
   // A slab's 12 products go to a fresh partial sum (part), then added to
@@ -390,27 +423,33 @@ mix_kernel(const T* __restrict__ W, const T* __restrict__ G,
     }
 }
 
-template <typename T, bool VEC, int PAIRS>
+// lanes the gather's row table holds at most: Kp ints beside the stages
+constexpr int MAX_GATHER = 16384;
+
+template <typename T, bool VEC, int PAIRS, bool GATHER>
 int launch_tile(const T* W, const T* G, const float* Bt, T* out, int E, int N,
-                int D, int Kp, cudaStream_t stream) {
-  constexpr int bytes = Smem<T>::BYTES;
+                int D, int Kp, const int* gidx, int n_w, cudaStream_t stream) {
+  // the limit is set once, for the largest table; a launch asks for its own
+  constexpr int limit = Smem<T>::BYTES + (GATHER ? 4 * MAX_GATHER : 0);
+  const int bytes = Smem<T>::BYTES + (GATHER ? 4 * Kp : 0);
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(mix_kernel<T, VEC, PAIRS>),
-      bytes);
+      smem_set,
+      reinterpret_cast<const void*>(mix_kernel<T, VEC, PAIRS, GATHER>), limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_jt = ceil_div(N, BJ);
   const long long blocks = n_jt * ceil_div(D, BD);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks), 1, static_cast<unsigned>(E));
-  mix_kernel<T, VEC, PAIRS><<<grid, THREADS, bytes, stream>>>(
-      W, G, Bt, out, N, D, Kp, static_cast<int>(n_jt));
+  mix_kernel<T, VEC, PAIRS, GATHER><<<grid, THREADS, bytes, stream>>>(
+      W, G, Bt, out, N, D, Kp, static_cast<int>(n_jt), gidx, n_w);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int PAIRS>
+template <typename T, int PAIRS, bool GATHER = false>
 int launch(const void* W, const void* G, const void* P, const void* Q,
-           void* out, void* scratch, int E, int N, int D, cudaStream_t stream) {
+           void* out, void* scratch, int E, int N, int D, cudaStream_t stream,
+           const int* gidx = nullptr, int n_w = 0) {
   constexpr int SPLIT = std::is_same<T, float>::value ? 3 : 1;
   const int Kp = static_cast<int>(ceil_div(N, BK) * BK);
   float* Bt = static_cast<float*>(scratch);
@@ -429,8 +468,10 @@ int launch(const void* W, const void* G, const void* P, const void* Q,
   const bool vec = D % (16 / sizeof(T)) == 0 &&
       (reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(G) |
        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  return vec ? launch_tile<T, true, PAIRS>(w, g, Bt, o, E, N, D, Kp, stream)
-             : launch_tile<T, false, PAIRS>(w, g, Bt, o, E, N, D, Kp, stream);
+  return vec ? launch_tile<T, true, PAIRS, GATHER>(w, g, Bt, o, E, N, D, Kp,
+                                                   gidx, n_w, stream)
+             : launch_tile<T, false, PAIRS, GATHER>(w, g, Bt, o, E, N, D, Kp,
+                                                    gidx, n_w, stream);
 }
 
 // The product of E problems for dtype code `dtype`: PAIRS = 1 takes W and

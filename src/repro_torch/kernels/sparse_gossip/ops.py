@@ -3,7 +3,11 @@
 The gather-compute-scatter contract of the active-set update, per leaf:
 
 - ``sparse_gossip_rows`` returns the compact (A, ...) mixed rows
-  P_subᵀ·(W[workers] − η·mask⊙G) (gather and mix fused in the kernel);
+  P_subᵀ·(W[workers] − η·mask⊙G) (gather and mix fused in the kernel).
+  It is ``active_set_operands`` -- the masked P, the folded Q and the
+  clamped indices, which depend on the event and not on the leaf -- then
+  ``mix_active_leaf`` on them; an event over several leaves calls the
+  first once and the second per leaf;
 - ``scatter_active_rows`` writes them into the (N, ...) carry **in place**
   (the port mutates the carry where the reference donated it): valid lanes
   overwrite their rows, ``-1`` lanes write nothing.
@@ -26,11 +30,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gossip_mix.ops import _split_p_scratch
 
 _GOSSIP_PROTOTYPES = {
-    "sparse_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 6
-    + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "sparse_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 7
+    + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+    "sparse_gossip_kernels": (ctypes.c_int,),
 }
+# the C entry's body codes: the dispatch rule, or one body forced
+_BODIES = {None: 0, "cores": 1, "tensor": 2}
 _SCATTER_PROTOTYPES = {
     "scatter_rows_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
     + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
@@ -53,9 +61,24 @@ def sparse_gossip_plain(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     return out.to(W.dtype)
 
 
+def sparse_gossip_kernels(A: int) -> int:
+    """Device kernels one ``sparse_gossip_cuda`` call launches at A lanes:
+    the C dispatch's rule (1 for the CUDA-core body, 2 for the split
+    prepass and the wgmma body).  Builds the library if needed."""
+    return build.load("sparse_gossip", _GOSSIP_PROTOTYPES).sparse_gossip_kernels(A)
+
+
 def sparse_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
-                       Q: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: compact rows out (A, D) = Pᵀ·W[gidx] − Qᵀ·G."""
+                       Q: torch.Tensor, gidx: torch.Tensor, *,
+                       body: str | None = None) -> torch.Tensor:
+    """The CUDA kernel: compact rows out (A, D) = Pᵀ·W[gidx] − Qᵀ·G.
+
+    The C dispatch picks the body from A; ``body`` ("cores": the CUDA-core
+    body, A ≤ 32 only; "tensor": the wgmma body) forces one, to measure or
+    test both at one shape."""
+    if body not in _BODIES:
+        raise ValueError(f"sparse_gossip: body must be one of "
+                         f"{sorted(map(str, _BODIES))}, got {body!r}")
     dev = build.check_operands("sparse_gossip",
                                {"W": W, "G": G, "P": P, "Q": Q},
                                {"gidx": gidx})
@@ -74,10 +97,12 @@ def sparse_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.load("sparse_gossip", _GOSSIP_PROTOTYPES)
+    scratch = _split_p_scratch(1, A, dev, pairs=2)
     build.launch(
         lib, "sparse_gossip_launch", dev, build.DTYPE_CODES[W.dtype],
         W.data_ptr(), G.data_ptr(), P.data_ptr(), Q.data_ptr(),
-        gidx.data_ptr(), out.data_ptr(), N, A, D)
+        gidx.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, A, D,
+        _BODIES[body])
     sparse_gossip_cuda.launches += 1
     return out
 
@@ -93,6 +118,36 @@ def sparse_gossip_compact(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     return sparse_gossip_cuda(W, G, P, Q, gidx)
 
 
+def active_set_operands(P_sub: torch.Tensor, scaled_mask: torch.Tensor,
+                        workers: torch.Tensor, dtype: torch.dtype):
+    """The kernel's per-event operands (P, Q, gidx) of one active set.
+
+    P = P_sub with the rows and columns of ``-1`` lanes zeroed, Q =
+    diag(scaled_mask·valid)·P, both computed in P_sub's dtype, then cast
+    to ``dtype`` (the leaves') and made contiguous; gidx the workers with
+    ``-1`` lanes clamped to 0, int32.  They depend on the event only, so
+    an event over several leaves builds them once.
+    """
+    valid = workers >= 0
+    gidx = torch.where(valid, workers, 0).to(torch.int32).contiguous()
+    vf = valid.to(P_sub.dtype)
+    P = P_sub * vf[:, None] * vf[None, :]
+    Q = (scaled_mask * vf).to(P.dtype)[:, None] * P
+    return P.to(dtype).contiguous(), Q.to(dtype).contiguous(), gidx
+
+
+def mix_active_leaf(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
+                    Q: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Compact rows Pᵀ·W[gidx] − Qᵀ·G of one (N, ...) leaf, from the
+    operands of :func:`active_set_operands` (in W's dtype); G: (A, ...)."""
+    N = W.shape[0]
+    A = gidx.shape[0]
+    flat_w = W.reshape(N, -1).contiguous()
+    flat_g = G.reshape(A, -1).to(flat_w.dtype).contiguous()
+    out = sparse_gossip_compact(flat_w, flat_g, P, Q, gidx)
+    return out.reshape((A,) + tuple(W.shape[1:]))
+
+
 def sparse_gossip_rows(W: torch.Tensor, G: torch.Tensor, P_sub: torch.Tensor,
                        scaled_mask: torch.Tensor,
                        workers: torch.Tensor) -> torch.Tensor:
@@ -102,19 +157,8 @@ def sparse_gossip_rows(W: torch.Tensor, G: torch.Tensor, P_sub: torch.Tensor,
     valid lanes; zero rows for ``-1``-padded lanes.  W: (N, ...); G: (A, ...)
     active-set gradients; P_sub: (A, A); scaled_mask: (A,) = η·grad_mask.
     """
-    N = W.shape[0]
-    A = workers.shape[0]
-    valid = workers >= 0
-    gidx = torch.where(valid, workers, 0).to(torch.int32).contiguous()
-    vf = valid.to(P_sub.dtype)
-    P = P_sub * vf[:, None] * vf[None, :]
-    Q = (scaled_mask * vf).to(P.dtype)[:, None] * P
-    flat_w = W.reshape(N, -1).contiguous()
-    flat_g = G.reshape(A, -1).to(flat_w.dtype).contiguous()
-    out = sparse_gossip_compact(flat_w, flat_g,
-                                P.to(flat_w.dtype).contiguous(),
-                                Q.to(flat_w.dtype).contiguous(), gidx)
-    return out.reshape((A,) + tuple(W.shape[1:]))
+    P, Q, gidx = active_set_operands(P_sub, scaled_mask, workers, W.dtype)
+    return mix_active_leaf(W, G, P, Q, gidx)
 
 
 # -- in-place scatter -------------------------------------------------------

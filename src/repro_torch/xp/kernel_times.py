@@ -12,8 +12,14 @@ this file's tree) and with the timing functions of this file's tree
 - ``masked_gossip`` at N = 256, float32, at each leaf width of the paper's
   2-NN, and summed over the six leaves: the kernel's share of one dense
   event;
-- ``scatter_rows`` at the bucket rungs A = 16, 64, 256 (all lanes valid)
+- ``scatter_rows`` at the rungs A = 2, 16, 64, 256 (all lanes valid)
   at each leaf width, float32, beside ``index_copy_``;
+- ``sparse_gossip`` at D = 65536, float32, gathered from N = 256: all
+  lanes valid at each rung (``full``) and a merged row of the main path at
+  A = 64 (``merged``, ``chip_smoke.lanes``), beside ``index_select`` and
+  two matrix products; and, where the tree's wrapper can force a body
+  (``body=``), both bodies at A = 8-64 (``crossover``: the rows that set
+  the dispatch rule of ``csrc/sparse_gossip.cu``);
 - ``gossip_mix`` at N = 256 over the leaf widths and
   ``gossip_mix_batched`` at E = 32, N = 64, D = 65536, float32.
 
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -76,7 +83,8 @@ def measure(smoke, timing) -> dict:
     P = (P / P.sum(1, keepdim=True)).to(dev)
     mask = (torch.rand(N, generator=gen) < 0.5).float().to(dev) * 0.2
     Q = (mask[:, None] * P).contiguous()
-    out = {"masked_gossip": {}, "gossip_mix": {}, "scatter_rows": {}}
+    out = {"masked_gossip": {}, "gossip_mix": {}, "scatter_rows": {},
+           "sparse_gossip": {}}
     for D in smoke.D_LEAVES:
         W, G = rnd(N, D, scale=0.1), rnd(N, D, scale=0.5)
         out["masked_gossip"][D] = figures(
@@ -96,6 +104,33 @@ def measure(smoke, timing) -> dict:
             out["scatter_rows"][f"A={A},D={D}"] = figures(
                 lambda: sparse_ops.scatter_rows_cuda(X, rows, w),
                 lambda: X.index_copy_(0, wl, rows))
+    D = 65536
+    W = rnd(N, D, scale=0.1)
+    bodies = ("cores", "tensor") if "body" in inspect.signature(
+        sparse_ops.sparse_gossip_cuda).parameters else ()
+    cases = [(A, "full") for A in smoke.A_RUNGS] + [(smoke.MERGED_A, "merged")]
+    cases += [(A, "crossover") for A in (8, 16, 24, 32, 48, 64) if bodies]
+    for A, kind in cases:
+        w, block = smoke.lanes(gen, A, N, dev, "merged" if kind == "merged"
+                               else "full")
+        vf = (w >= 0).float()
+        Ps = torch.rand(A, A, generator=gen).to(dev) * block.to(dev)
+        Ps = (Ps * vf[:, None] * vf[None, :]).contiguous()
+        Qs = (0.2 * vf[:, None] * Ps).contiguous()
+        gidx = torch.where(w >= 0, w, 0).to(torch.int32)
+        G = rnd(A, D, scale=0.5)
+        library = lambda: Ps.T @ W.index_select(0, gidx.long()) - Qs.T @ G
+        if kind != "crossover":
+            out["sparse_gossip"][f"A={A},{kind}"] = figures(
+                lambda: sparse_ops.sparse_gossip_cuda(W, G, Ps, Qs, gidx),
+                library)
+            continue
+        for body in bodies:
+            if body == "cores" and A > 32:
+                continue
+            out["sparse_gossip"][f"A={A},crossover,{body}"] = figures(
+                lambda: sparse_ops.sparse_gossip_cuda(W, G, Ps, Qs, gidx,
+                                                      body=body))
     E, n, D = smoke.BATCHED_MAIN
     Wb = rnd(E, n, D)
     Pb = torch.rand(E, n, n, generator=gen)

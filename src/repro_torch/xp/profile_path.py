@@ -8,8 +8,15 @@ does) in the trainer mode ``--mode`` (``scan``, ``sparse_scan``,
 ``per_event`` or ``fused``; ``fused`` takes ``ad_psgd`` or ``agp``), runs ``--warm`` events to pay one-time costs, then times ``--events``
 more three ways: the host clock around the run (events/s), a
 ``torch.profiler`` window over the same run (device time per kernel, the
-device's busy and idle share of the window, host time per operator) and a
-``cProfile`` pass (host time per Python function).  Needs a CUDA device.
+device's busy and idle share of the window, host time per operator, and
+the launches: device kernels and copies in the window, per event and, for
+the active-set modes, per row -- a row launches ``sparse_gossip`` once per
+leaf) and a ``cProfile`` pass (host time per Python function).  Needs a
+CUDA device.
+
+To count another tree's launches with this script, run it as a file with
+that tree's ``src`` first on the path:
+``PYTHONPATH=DIR/src python src/repro_torch/xp/profile_path.py``.
 """
 from __future__ import annotations
 
@@ -47,7 +54,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.profiling import window_summary
+    from repro_torch.kernels.sparse_gossip import ops as sparse_ops
+    from repro_torch.profiling import device_events, window_summary
     from repro_torch.xp import build_trainer
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -63,11 +71,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
+    rows0 = sparse_ops.sparse_gossip_cuda.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         tr.run(max_events=args.events, eval_every=eval_every)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t1
+    rows = (sparse_ops.sparse_gossip_cuda.launches - rows0) // len(tr.W)
+    n_dev = len(device_events(prof))
 
     pr = cProfile.Profile()
     pr.enable()
@@ -80,6 +91,9 @@ def main(argv=None) -> int:
         "alg": args.alg, "n": args.n, "mode": tr.mode, "events": args.events,
         "events_per_s": args.events / wall,
         "profiled": window_summary(prof, wall_prof, 15),
+        "launches": {"device_events": n_dev, "rows": rows,
+                     "per_event": n_dev / args.events,
+                     "per_row": n_dev / rows if rows else None},
     }
     print(json.dumps(summary, indent=1))
     s = io.StringIO()

@@ -159,20 +159,51 @@ def test_gossip_mix_batched_kernel_matches_plain(cuda, e, n, d, dt):
                                                               P[k].contiguous()))
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("a", [2, 16, 40, 64, 300])
-def test_sparse_kernels_match_plain(cuda, a, dt):
-    n, d = 512, 777
-    g = torch.Generator().manual_seed(a)
-    w = torch.randperm(n, generator=g)[:a]
-    w[0] = 0
-    w[torch.randperm(a, generator=g)[:a // 3]] = -1   # pads in any lane
-    w = w.to(torch.int32).to(cuda)
-    W = torch.randn(n, d, generator=g).to(cuda, dt)
+def _sparse_lanes(g, a, n, kind):
+    """(a,) int32 workers of a carry of n rows: distinct, worker 0 active.
+    ``pads``: about a third of the lanes -1, in any position; ``merged``:
+    a row as merge_event_groups packs it, the valid lanes of cliques of
+    3-8 workers one after another from lane 0 while they fit, then -1
+    lanes.  Also the lanes' block mask: all ones, or 1 within a clique (a
+    block-diagonal P_sub)."""
+    w = torch.cat([torch.zeros(1, dtype=torch.int64),
+                   torch.randperm(n - 1, generator=g)[:a - 1] + 1])
+    block = torch.ones(a, a)
+    if kind == "pads":
+        w[torch.randperm(a, generator=g)[:a // 3]] = -1
+    else:
+        clique = torch.full((a,), -1)
+        o = c = 0
+        while True:
+            m = int(torch.randint(3, 9, (1,), generator=g))
+            if o + m > a:
+                break
+            clique[o:o + m] = c
+            o, c = o + m, c + 1
+        w[o:] = -1
+        block = ((clique[:, None] == clique[None, :])
+                 & (clique[:, None] >= 0)).float()
+    return w.to(torch.int32), block
+
+
+def _sparse_operands(g, a, d, dt, cuda, kind="pads", n=512, offset=0):
+    w, block = _sparse_lanes(g, a, n, kind)
+    W = _offset(n, d, g, cuda, dt, offset)
     G = torch.randn(a, d, generator=g).to(cuda, dt)
-    P = torch.rand(a, a, generator=g).to(cuda)
+    P = (torch.rand(a, a, generator=g) * block).to(cuda)
     m = (torch.rand(a, generator=g) * 0.3).to(cuda)
-    rows = sparse_ops.sparse_gossip_rows(W, G, P, m, w)   # kernel path
+    return W, G, P, m, w.to(cuda)
+
+
+def _check_sparse(W, G, P, m, w, dt, body=None):
+    """The kernel's rows (through the leaf op, or the kernel with ``body``
+    forced) against the plain version, padded lanes' rows exactly zero,
+    the scatter an exact copy."""
+    if body is None:
+        rows = sparse_ops.sparse_gossip_rows(W, G, P, m, w)   # kernel path
+    else:
+        Pm, Qm, gidx = sparse_ops.active_set_operands(P, m, w, dt)
+        rows = sparse_ops.sparse_gossip_cuda(W, G, Pm, Qm, gidx, body=body)
     valid = w >= 0
     vf = valid.to(P.dtype)
     Pm = (P * vf[:, None] * vf[None, :]).to(dt)
@@ -184,6 +215,83 @@ def test_sparse_kernels_match_plain(cuda, a, dt):
     sparse_ops.scatter_active_rows(X1, rows, w)
     sparse_ops.scatter_rows_plain(X2, rows, w)
     assert torch.equal(X1, X2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [10, 777, 65536])
+@pytest.mark.parametrize("a", [2, 16, 17, 32, 33, 64, 100, 256, 300])
+def test_sparse_kernels_match_plain(cuda, a, d, dt):
+    """Both bodies' widths (the CUDA-core body to A = 32, the wgmma body
+    above), ragged A and D, -1 lanes anywhere."""
+    g = torch.Generator().manual_seed(a + d)
+    _check_sparse(*_sparse_operands(g, a, d, dt, cuda), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [777, 65536])
+@pytest.mark.parametrize("a", [32, 64, 256])
+def test_sparse_kernels_match_plain_on_merged_lanes(cuda, a, d, dt):
+    """The main path's merged rows: cliques' valid lanes packed from lane
+    0, block-diagonal P_sub."""
+    g = torch.Generator().manual_seed(3 * a + d)
+    _check_sparse(*_sparse_operands(g, a, d, dt, cuda, kind="merged"), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a", [16, 64])
+def test_sparse_gossip_offset_views(cuda, a, dt):
+    """W off a 16-byte boundary: both bodies copy 4 bytes (float32) or
+    load elements (bfloat16) instead of whole chunks."""
+    g = torch.Generator().manual_seed(5 * a)
+    W, G, P, m, w = _sparse_operands(g, a, 4096, dt, cuda, offset=1)
+    assert W.data_ptr() % 16
+    _check_sparse(W, G, P, m, w, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [10, 65536])
+@pytest.mark.parametrize("a", [2, 16, 17, 32])
+@pytest.mark.parametrize("body", ["cores", "tensor"])
+def test_sparse_gossip_bodies_match_plain(cuda, body, a, d, dt):
+    """At the crossover's widths each body, forced, holds the plain
+    version, so the rule may pick either."""
+    g = torch.Generator().manual_seed(7 * a + d)
+    _check_sparse(*_sparse_operands(g, a, d, dt, cuda), dt, body=body)
+
+
+def test_sparse_gossip_counts_one_launch_per_call(cuda):
+    """The counter counts wrapper calls, one per call, whichever body (and
+    however many device kernels) the rule runs."""
+    g = torch.Generator().manual_seed(1)
+    for a in (2, 64):
+        W, G, P, m, w = _sparse_operands(g, a, 256, torch.float32, cuda)
+        Pm, Qm, gidx = sparse_ops.active_set_operands(P, m, w, torch.float32)
+        before = sparse_ops.sparse_gossip_cuda.launches
+        sparse_ops.sparse_gossip_cuda(W, G, Pm, Qm, gidx)
+        sparse_ops.sparse_gossip_rows(W, G, P, m, w)
+        assert sparse_ops.sparse_gossip_cuda.launches == before + 2
+    assert (sparse_ops.sparse_gossip_kernels(2),
+            sparse_ops.sparse_gossip_kernels(64)) == (1, 2)
+    with pytest.raises(RuntimeError, match="sparse_gossip"):
+        sparse_ops.sparse_gossip_cuda(W, G, Pm, Qm, gidx, body="cores")
+
+
+@pytest.mark.parametrize("body", [None, "tensor"])
+def test_sparse_gossip_stays_near_the_exact_product(cuda, body):
+    """A = 256 rows gathered from a carry of 512, unnormalised P (outputs
+    of order 10) and a Q of scale 0.1: the float32 kernel stays within
+    2e-5 of the float64 product."""
+    n, a, d = 512, 256, 16384
+    g = torch.Generator().manual_seed(4)
+    W = torch.randn(n, d, generator=g).to(cuda)
+    G = torch.randn(a, d, generator=g).to(cuda)
+    P = torch.rand(a, a, generator=g).to(cuda)
+    Q = (torch.rand(a, a, generator=g) * 0.1).to(cuda)
+    gidx = torch.randperm(n, generator=g)[:a].to(cuda, torch.int32)
+    exact = (P.double().T @ W.double().index_select(0, gidx.long())
+             - Q.double().T @ G.double())
+    out = sparse_ops.sparse_gossip_cuda(W, G, P, Q, gidx, body=body)
+    assert float((out.double() - exact).abs().max()) <= 2e-5
 
 
 @pytest.mark.parametrize("dt,d,a,offset", [

@@ -226,6 +226,87 @@ def test_sparse_gossip_matches_reference(n, d, kind, dtype):
     np.testing.assert_array_equal(_f32(applied)[untouched], _f32(tW)[untouched])
 
 
+def _merged_case(a, n, d, seed):
+    """A merged row as merge_event_groups packs it: cliques of 3-8 distinct
+    workers one after another from lane 0 while they fit, then -1 lanes,
+    a block-diagonal stochastic P_sub (one block per clique)."""
+    rng = np.random.default_rng(seed)
+    w = np.full(a, -1, dtype=np.int32)
+    clique = np.full(a, -1)
+    o = c = 0
+    while True:
+        m = int(rng.integers(3, 9))
+        if o + m > a:
+            break
+        clique[o:o + m] = c
+        o, c = o + m, c + 1
+    w[:o] = rng.permutation(n)[:o]
+    block = (clique[:, None] == clique[None, :]) & (clique[:, None] >= 0)
+    P = (rng.random((a, a)) + np.eye(a)) * block
+    P = (P / np.maximum(P.sum(axis=1, keepdims=True), 1e-30)).astype(np.float32)
+    W = rng.normal(size=(n, d)).astype(np.float32)
+    G = rng.normal(size=(a, d)).astype(np.float32)
+    mask = ((rng.random(a) < 0.7) * 0.2 * (w >= 0)).astype(np.float32)
+    return W, G, P, mask, w
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sparse_gossip_rows_on_a_merged_row(dtype):
+    """The main path's merged rows (A = 64 lanes of a 100-row carry)
+    through the port's op and the reference's Pallas op in interpret mode."""
+    W, G, P, mask, w = _merged_case(64, 100, 96, seed=64)
+    (jW, tW), (jG, tG) = _both(W, dtype), _both(G, dtype)
+    (jP, tP), (jm, tm) = _both(P, dtype), _both(mask, dtype)
+    rows = sparse_ops.sparse_gossip_rows(tW, tG, tP, tm, torch.as_tensor(w))
+    jrows = jax_sparse_ops.sparse_gossip_rows(jW, jG, jP, jm, jnp.asarray(w),
+                                              interpret=True)
+    np.testing.assert_allclose(_f32(rows), _f32(jrows), **_tol(dtype))
+    assert not rows[torch.as_tensor(w < 0)].to(torch.float32).any()
+
+
+def _rows_masked_per_leaf(W, G, P_sub, scaled_mask, workers):
+    """The leaf op as it was when each leaf masked P_sub itself: the
+    operands the hoisted helper must reproduce bit for bit."""
+    N, A = W.shape[0], workers.shape[0]
+    valid = workers >= 0
+    gidx = torch.where(valid, workers, 0).to(torch.int32).contiguous()
+    vf = valid.to(P_sub.dtype)
+    P = P_sub * vf[:, None] * vf[None, :]
+    Q = (scaled_mask * vf).to(P.dtype)[:, None] * P
+    flat_w = W.reshape(N, -1).contiguous()
+    flat_g = G.reshape(A, -1).to(flat_w.dtype).contiguous()
+    out = sparse_ops.sparse_gossip_compact(
+        flat_w, flat_g, P.to(flat_w.dtype).contiguous(),
+        Q.to(flat_w.dtype).contiguous(), gidx)
+    return out.reshape((A,) + tuple(W.shape[1:]))
+
+
+@pytest.mark.parametrize("kind", ["corners", "merged"])
+def test_event_operands_built_once_give_the_same_rows(kind):
+    """active_set_operands once per event, then mix_active_leaf per leaf,
+    equals the per-leaf masking exactly, for every leaf shape of the 2-NN
+    kind (matrix, vector, multi-dim) and in bfloat16 too."""
+    if kind == "merged":
+        _, _, P, mask, w = _merged_case(32, 40, 8, seed=5)
+    else:
+        _, _, P, mask, w = _sparse_case(8, 16, "corners", seed=5)
+    rng = np.random.default_rng(6)
+    A, n = len(w), int(w.max()) + 3
+    tP, tm, tw = (torch.as_tensor(x) for x in (P, mask, w))
+    for dt in (torch.float32, torch.bfloat16):
+        ops = sparse_ops.active_set_operands(tP.to(dt), tm.to(dt), tw, dt)
+        for shape in ((n, 33), (n,), (n, 3, 5)):
+            W = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(dt)
+            G = torch.as_tensor(rng.normal(size=(A,) + shape[1:])
+                                .astype(np.float32))
+            hoisted = sparse_ops.mix_active_leaf(W, G, *ops)
+            old = _rows_masked_per_leaf(W, G, tP.to(dt), tm.to(dt), tw)
+            assert hoisted.dtype == dt and hoisted.shape == (A,) + shape[1:]
+            assert torch.equal(hoisted, old)
+            assert torch.equal(sparse_ops.sparse_gossip_rows(
+                W, G, tP.to(dt), tm.to(dt), tw), old)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kind", ["corners", "all_pad"])
 @pytest.mark.parametrize("n,d", [(3, 7), (8, 512), (16, 1000)])

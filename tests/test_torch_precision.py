@@ -14,6 +14,9 @@ oracles at the tolerances the card is held to:
   [−Q; P] and [G; W] stacked along k, each half zero-padded from N to Kp
   on its own, every 32-row slab summed into a fresh float32 partial that
   is added to the total: within the same bound of the reference.
+* ``sparse_gossip`` (wider rows) runs that body with the W half gathered,
+  row k = W[gidx[k]] of a larger carry, over A lanes: within the same
+  bound of the reference's ``sparse_gossip_ref``, on merged rows too.
 * ``swa_attention`` (bfloat16) rounds the probabilities to bfloat16 before
   the PV product.  An online softmax over 64-key tiles in float32 with that
   rounding stays within ``chip_smoke.py``'s bf16 bound for the kernel
@@ -29,6 +32,7 @@ import torch
 
 from repro.kernels.gossip_mix.ref import gossip_mix_ref as jax_mix_ref
 from repro.kernels.gossip_mix.ref import masked_gossip_ref as jax_masked_ref
+from repro.kernels.sparse_gossip.ref import sparse_gossip_ref as jax_sparse_ref
 from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -68,12 +72,16 @@ def _tf32_mix(W: np.ndarray, P: np.ndarray, terms: int) -> np.ndarray:
     return acc
 
 
-def _tf32_masked_mix(W, G, P, Q, terms: int) -> np.ndarray:
+def _tf32_masked_mix(W, G, P, Q, terms: int, gidx=None) -> np.ndarray:
     """Pᵀ·W − Qᵀ·G as the shared wgmma body computes it: B = [−Q; P] and
     A = [G; W] stacked along k, each half zero-padded from N to Kp on its
     own; per slab of 32 values of k a fresh float32 partial sum, fed the
     small terms (a_lo·b_hi, a_hi·b_lo) of the slab's four k-steps before
-    their a_hi·b_hi; the partial added to the float32 total."""
+    their a_hi·b_hi; the partial added to the float32 total.  With
+    ``gidx`` the W half's row k is W[gidx[k]], clamped into W's rows, as
+    sparse_gossip's body copies it (k keeps its order)."""
+    if gidx is not None:
+        W = W[np.clip(gidx, 0, W.shape[0] - 1)]
     n, d = W.shape
     kp = -(-n // SLAB) * SLAB
     B = np.zeros((2 * kp, n), dtype=np.float32)
@@ -151,6 +159,60 @@ def test_masked_three_tf32_products_hold_float32_parity(n, d, stochastic):
     # one TF32 pass misses the float32 bound here too
     one = _tf32_masked_mix(W, G, P, Q, terms=1)
     assert not np.allclose(one, ref, **FP32_TOL)
+
+
+def _merged_lanes(rng, a: int, n_carry: int):
+    """A merged row as merge_event_groups packs it: cliques of 3-8 distinct
+    workers of the carry, one after another from lane 0 while they fit,
+    then -1 lanes; and the block-diagonal mask of its P_sub."""
+    workers = np.full(a, -1, dtype=np.int32)
+    clique = np.full(a, -1)
+    o = c = 0
+    while True:
+        m = int(rng.integers(3, 9))
+        if o + m > a:
+            break
+        clique[o:o + m] = c
+        o, c = o + m, c + 1
+    workers[:o] = rng.permutation(n_carry)[:o]
+    block = (clique[:, None] == clique[None, :]) & (clique[:, None] >= 0)
+    return workers, block.astype(np.float32)
+
+
+@pytest.mark.parametrize("a,kind", [(16, "merged"), (33, "merged"),
+                                    (64, "merged"), (33, "full"),
+                                    (64, "full")])
+def test_gathered_three_tf32_products_hold_float32_parity(a, kind):
+    """sparse_gossip's wgmma body: A lanes gathered from a carry of 2A + 5
+    rows, on a merged row (block-diagonal stochastic P_sub, -1 lanes at the
+    end, their rows and columns zero) or on all lanes with an unnormalised
+    P (outputs of order 10, then also within the float32 bound of the
+    float64 product), against the reference's oracle."""
+    rng = np.random.default_rng(7 * a + len(kind))
+    n_carry, d = 2 * a + 5, 300
+    W = rng.normal(size=(n_carry, d)).astype(np.float32)
+    G = rng.normal(size=(a, d)).astype(np.float32)
+    if kind == "merged":
+        workers, block = _merged_lanes(rng, a, n_carry)
+        P = (rng.random((a, a)) + np.eye(a)) * block
+        P = P / np.maximum(P.sum(axis=1, keepdims=True), 1e-30)
+        mask = (rng.random(a) < 0.7) * 0.2 * (workers >= 0)
+    else:
+        workers = rng.permutation(n_carry)[:a].astype(np.int32)
+        P = rng.random((a, a))
+        mask = rng.random(a) * 0.1
+    P, mask = P.astype(np.float32), mask.astype(np.float32)
+    Q = (mask[:, None] * P).astype(np.float32)
+    gidx = np.where(workers >= 0, workers, 0)
+    ref = np.asarray(jax_sparse_ref(*(jnp.asarray(x) for x in
+                                      (W, G, P, Q, workers))))
+    three = _tf32_masked_mix(W, G, P, Q, terms=3, gidx=gidx)
+    np.testing.assert_allclose(three, ref, **FP32_TOL)
+    assert not three[workers < 0].any()
+    if kind == "full":
+        exact = P.T.astype(np.float64) @ W[gidx] - Q.T.astype(np.float64) @ G
+        assert np.abs(exact).max() > 10
+        assert np.abs(three - exact).max() <= FP32_TOL["atol"]
 
 
 def _bf16(x: np.ndarray) -> torch.Tensor:
