@@ -48,6 +48,23 @@ non-zero, printing no result, when there is none or when any phase fails:
 12. ``gossip_mix_batched`` on the system's own data: the (32, 64, 64)
     consensus matrices of a DSGD-AAU ``EventBatch`` applied to 32 copies of
     each trainer leaf, counters likewise, against ``gossip_mix_dense``;
+13. the experiment CLI as its users enter it: ``repro_torch.xp.__main__
+    .main`` on one ``paper_figures`` cell (N=256, full 2-NN, seed 0,
+    ``paper_default``) with ``--telemetry --trace --run-log --out``:
+    sync DSGD in ``scan``, DSGD-AAU, AD-PSGD, Prague and AGP in
+    ``sparse_scan``, and the dtype probe (fp32 and bf16); counters zeroed
+    just before the call and read just after; the artifact's sections,
+    staleness bound, copy accounting and meta, and the run log, checked;
+14. card vs CPU with telemetry and trace, from one W0 carried with
+    ``params_from_numpy``: DSGD-AAU at N=64 in ``sparse_scan`` (merged
+    rows) and ``per_event``, sync DSGD at N=64 in ``scan``, AD-PSGD at
+    N=16 in ``fused``; integer counters and trace arrays exactly, float
+    counters within 1e-4, the wait-blame summary within 1e-6;
+15. the cost of observing: events/s with and without telemetry, runs in
+    turns (off, on, on, off) of one trainer each, in every mode at N=256
+    (fused AD-PSGD 1024 events, the reference's contract being under 10 %);
+    then one sanitized ``sparse_scan`` run at N=256, its explicit fetches
+    counted;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 """
@@ -604,7 +621,7 @@ class ActiveSets:
         self._orig = orig = DecentralizedTrainer._dispatch_sparse_block
         rows, cliques = self.rows, self.cliques
 
-        def recorded(tr, batch, rounds, lane_off=None):
+        def recorded(tr, batch, rounds, lane_off=None, lane_ts=None):
             w = np.asarray(batch.workers)
             for e in range(w.shape[0]):
                 valid = w[e] >= 0
@@ -619,7 +636,7 @@ class ActiveSets:
                                          return_counts=True)
                     for m in sizes:
                         cliques[int(m)] += 1
-            return orig(tr, batch, rounds, lane_off)
+            return orig(tr, batch, rounds, lane_off, lane_ts)
 
         DecentralizedTrainer._dispatch_sparse_block = recorded
         return self
@@ -940,6 +957,218 @@ def batched_on_events(device, trainer) -> dict:
     return dict(launches=counts["gossip_mix_batched"], err=err)
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the experiment CLI, telemetry and trace, the sanitizer
+# ---------------------------------------------------------------------------
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def xp_cli(device, n: int = N_MAIN, card: str = "cpu") -> dict:
+    """Phase 13: ``python -m repro_torch.xp`` in-process on one
+    ``paper_figures`` cell at N=``n`` with telemetry, trace and a run log;
+    returns the launch counts of the call and each run's figures."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.obs import load_run_log
+    from repro_torch.xp.__main__ import main as xp_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, log = Path(tmp) / "paper_figures.json", Path(tmp) / "run.jsonl"
+        argv = ["--preset", "paper_figures", "--scales", str(n), "--seeds",
+                "0", "--scenarios", "paper_default", "--telemetry", "--trace",
+                "--run-log", str(log), "--out", str(out),
+                "--device", device.type]
+        csv = io.StringIO()
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(csv):
+            rc = xp_main(argv)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        art = json.loads(out.read_text())
+        records = load_run_log(str(log))
+    require(rc == 0, f"the CLI returned {rc}")
+    for line in csv.getvalue().splitlines():
+        print(f"    {line}")
+    # (a CPU rehearsal of this phase launches no kernel)
+    require(device.type == "cpu" or (
+        counts["sparse_gossip"] > 0 and counts["scatter_rows"] > 0
+        and counts["masked_gossip"] > 0),
+        f"the CLI's cell missed a kernel of its path: {counts}")
+    algs = ("dsgd_aau", "ad_psgd", "prague", "agp")
+    require(sorted(r["algorithm"] for r in art["speedup_vs_n"]) == sorted(algs),
+            f"speedup_vs_n rows: {art['speedup_vs_n']}")
+    require(len(art["convergence"]) == 5 and all(
+        math.isfinite(float(p["loss_mean"])) for r in art["convergence"]
+        for p in r["points"]), "convergence rows missing or not finite")
+    require(len(art["trace"]) == 5, f"{len(art['trace'])} trace rows")
+    tel = {r["algorithm"]: r for r in art["telemetry"]}
+    require(sorted(tel) == sorted(("dsgd_sync",) + algs),
+            f"telemetry rows for {sorted(tel)}")
+    require(tel["dsgd_aau"]["staleness_bound"]["ok"],
+            f"DSGD-AAU staleness bound: {tel['dsgd_aau']['staleness_bound']}")
+    require((art["meta"]["device"], art["meta"]["power_limit"])
+            == tuple(card.split(", ", 1)) if device.type == "cuda"
+            else art["meta"]["device"] == "cpu",
+            f"artifact meta {art['meta']} does not name the card {card}")
+    # the run log: one start and one end per run, the sweep's five cells
+    # first (reference, then the algorithms), then the dtype probe's two
+    starts = [r for r in records if r["event"] == "run_start"]
+    ends = [r for r in records if r["event"] == "run_end"]
+    require(len(starts) == len(ends) == 7, f"run log: {len(starts)} starts, "
+            f"{len(ends)} ends")
+    # each run's set-up (pools drawn, first calls paid: the sweep warms up
+    # only the dtype probe) ends at its first block_dispatch record
+    firsts = []
+    for st in starts[:5]:
+        i = records.index(st)
+        firsts.append(next(r for r in records[i:]
+                           if r["event"] == "block_dispatch"))
+    runs = {}
+    for st, first, en in zip(starts[:5], firsts, ends[:5]):
+        alg = st["algorithm"]
+        require(tel[alg]["comm_copies"] == en["comm"],
+                f"{alg}: telemetry counted {tel[alg]['comm_copies']} copies, "
+                f"the run {en['comm']}")
+        w, setup = en["ts"] - st["ts"], first["ts"] - st["ts"]
+        runs[alg] = dict(mode=st["mode"], events=en["rounds"], wall_s=w,
+                         eps=en["rounds"] / w, setup_s=setup,
+                         steady_eps=en["rounds"] / (w - setup))
+        print(f"[13] {alg} N={n} {st['mode']}: {en['rounds']} events in "
+              f"{w:.3f} s = {en['rounds'] / w:.1f} events/s, of which "
+              f"set-up {setup:.3f} s, after it "
+              f"{runs[alg]['steady_eps']:.1f} events/s (telemetry and "
+              f"trace on); vtime {en['t']:.2f}; comm {en['comm']}")
+    for r in art["dtype_policy"]:
+        print(f"[13] dtype probe {r['dtype']} {r['algorithm']} N={r['n']}: "
+              f"{r['events']} events, {r['events_per_s']} events/s, final "
+              f"loss {float(r['final_loss']):.4f}")
+    print(f"[13] CLI call {wall:.1f} s; launches {counts}; meta "
+          f"{ {k: v for k, v in art['meta'].items() if k != 'spec'} }")
+    return dict(launches=counts, runs=runs, wall=wall)
+
+
+TRACE_ARRAYS = ("times", "copies", "lane_ev", "lane_worker", "lane_fin",
+                "lane_grad", "lane_restart", "edge_ev", "edge_src", "edge_dst")
+SUMMARY_FLOATS = ("busy_t", "idle_t", "utilization", "utilization_mean",
+                  "mix_age", "stale_mean")
+
+
+def observed_card_vs_cpu(device, events: int = 128) -> None:
+    """Phase 14: telemetry and trace on the card against the CPU, from one
+    W0 (a NumPy draw carried with ``params_from_numpy``)."""
+    import numpy as np
+    import torch
+    from repro_torch.xp import build_trainer, mlp2nn_init, params_from_numpy
+
+    w0 = {k: v.numpy() for k, v in
+          mlp2nn_init()(torch.Generator().manual_seed(0)).items()}
+    cpu = torch.device("cpu")
+    for alg, n, mode in (("dsgd_aau", 64, "sparse_scan"),
+                         ("dsgd_aau", 64, "per_event"),
+                         ("dsgd_sync", 64, "scan"), ("ad_psgd", 16, "fused")):
+        spec = paper_spec(scales=(n,), mode=mode, max_time=None,
+                          max_events=events, telemetry=True, trace=True)
+        runs = []
+        for dev in (device, cpu):
+            tr = build_trainer(spec, alg, n, 0, device=dev, batch_pool=events,
+                               init_params=params_from_numpy(w0, device=dev))
+            runs.append((tr, tr.run(max_events=events, eval_every=32)))
+        (tg, rg), (tc, rc) = runs
+        a, b = rc.telemetry, rg.telemetry
+        require(a.keys() == b.keys(), f"{alg} {mode}: summary keys differ")
+        float_err = max(float(np.max(np.abs(np.subtract(b[k], a[k]))))
+                        for k in SUMMARY_FLOATS)
+        ints_same = all(b[k] == a[k] for k in a
+                        if k not in SUMMARY_FLOATS + ("bucket_occupancy",))
+        trace_same = all(np.array_equal(getattr(tg.last_trace, k),
+                                        getattr(tc.last_trace, k))
+                         for k in TRACE_ARRAYS)
+        tax_err = max(abs(rg.trace[k] - rc.trace[k]) for k in (
+            "straggler_tax", "busy_t", "wait_t", "blame_total",
+            "residual_wait"))
+        merged = (mode == "sparse_scan"
+                  and tg._events_per_step(tg.scheduler.active_buckets()[0]) > 1)
+        print(f"[14] {alg} N={n} {mode}{' (merged rows)' if merged else ''}, "
+              f"{events} events, card vs CPU: integer counters equal "
+              f"{ints_same}, max float err {float_err:.3e}, trace arrays "
+              f"equal {trace_same}, straggler_tax {rg.trace['straggler_tax']}"
+              f" / {rc.trace['straggler_tax']} (max err {tax_err:.3e}); "
+              f"stale_max {b['stale_max']}, comm {b['comm_copies']}")
+        require(ints_same and float_err <= 1e-4,
+                f"{alg} {mode}: card and CPU telemetry disagree")
+        require(trace_same and tax_err <= 1e-6,
+                f"{alg} {mode}: card and CPU traces disagree")
+        require(same_counters(rg, rc), f"{alg} {mode}: counters differ")
+
+
+# (algorithm, mode, events per run, eval every, pool draws per worker: two
+# runs of the fused cell restart a fast worker up to ~130 times)
+OVERHEAD_CELLS = (("ad_psgd", "fused", 1024, 256, 192),
+                  ("dsgd_aau", "sparse_scan", 512, 256, 64),
+                  ("dsgd_sync", "scan", 64, 32, 64),
+                  ("dsgd_aau", "per_event", 128, 64, 64))
+
+
+def observing_cost(device, n: int = N_MAIN, cells=OVERHEAD_CELLS) -> dict:
+    """Phase 15: events/s with and without telemetry, one trainer each,
+    runs in turns (off, on, on, off); then a sanitized sparse_scan run."""
+    import statistics
+
+    from repro_torch.xp import build_trainer
+
+    out = {}
+    for alg, mode, events, eval_every, pool in cells:
+        spec = paper_spec(mode=mode, scales=(n,), max_time=None,
+                          max_events=events, block_size=32)
+        trainers = {}
+        for tel in (False, True):
+            trainers[tel] = tr = build_trainer(
+                spec.replace(telemetry=tel), alg, n, 0, batch_pool=pool,
+                device=device)
+            tr.warmup(max_events=events)
+        eps = {False: [], True: []}
+        for tel in (False, True, True, False):
+            sync(device)
+            t0 = time.perf_counter()
+            res = trainers[tel].run(max_events=events, eval_every=eval_every)
+            sync(device)
+            eps[tel].append(res.total_events / (time.perf_counter() - t0))
+            check_history(res, f"{alg} {mode} telemetry={tel}")
+        off, on = statistics.mean(eps[False]), statistics.mean(eps[True])
+        overhead = off / on - 1.0
+        out[mode] = dict(off=eps[False], on=eps[True], overhead=overhead)
+        print(f"[15] {alg} N={n} {mode}, {events} events: events/s without "
+              f"telemetry {', '.join(f'{x:.1f}' for x in eps[False])}, with "
+              f"{', '.join(f'{x:.1f}' for x in eps[True])}: overhead "
+              f"{100 * overhead:.1f} % (mean of each side)")
+    spec = paper_spec(scales=(n,), max_time=None, max_events=256,
+                      telemetry=True, trace=True)
+    tr = build_trainer(spec, "dsgd_aau", n, 0, batch_pool=64, device=device)
+    tr.sanitize = True
+    tr.warmup(max_events=256)
+    sync(device)
+    t0 = time.perf_counter()
+    res = tr.run(max_events=256, eval_every=64)
+    wall = time.perf_counter() - t0
+    stats = tr.sanitizer_stats
+    print(f"[15] sanitized dsgd_aau N={n} sparse_scan (telemetry, trace): "
+          f"{res.total_events} events in {wall:.3f} s, passed; explicit "
+          f"fetches {stats.fetches}")
+    require(stats.fetches == 2,
+            f"the sanitized run made {stats.fetches} fetches, not 2")
+    out["sanitized"] = dict(fetches=stats.fetches, wall=wall)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1094,6 +1323,15 @@ def main() -> int:
     # -- 12. gossip_mix_batched on a real EventBatch -------------------------
     batched = batched_on_events(device, per_event["trainer64"])
 
+    # -- 13. the experiment CLI on one paper_figures cell at N=256 -----------
+    xp = xp_cli(device, card=card)
+
+    # -- 14. telemetry and trace, card vs CPU --------------------------------
+    observed_card_vs_cpu(device)
+
+    # -- 15. the cost of observing; the sanitizer ----------------------------
+    observing = observing_cost(device)
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -1147,8 +1385,13 @@ def main() -> int:
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
             "library_device_ms": at["library_device_ms"],
+            "launches_xp": xp["launches"][kname],
             "shape": sel,
         })
+    cli_eps = ", ".join(f"{a} {r['eps']:.1f} ({r['steady_eps']:.1f} after "
+                        f"set-up)" for a, r in xp["runs"].items())
+    overheads = ", ".join(f"{m} {100 * o['overhead']:.1f} %"
+                          for m, o in observing.items() if m != "sanitized")
     print(f"[8] main path events/s: dsgd_aau N=256 sparse_scan {eps_sparse:.1f}, "
           f"dsgd_sync N=256 scan {res_d.total_events / wall_d:.1f}, dsgd_aau "
           f"N=256 per_event {per_event['eps']:.1f}, fused N=256 ad_psgd "
@@ -1156,7 +1399,8 @@ def main() -> int:
           f"{ARCH}: prefill {served['prefill_tok_s']:.1f} prompt tok/s, time to "
           f"first token {', '.join(f'{t:.4f}' for t in served['ttft'])} s, "
           f"decode {served['decode_tok_s']:.1f} tok/s, peak "
-          f"{served['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{served['peak_bytes'] / 2**30:.2f} GiB; CLI cell {cli_eps} "
+          f"events/s; telemetry overhead {overheads}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,6 +34,13 @@ from the host copy, so the loop never waits on the device.  For CUDA tensors
 the ops launch the hand-written kernels; for CPU tensors they run the plain
 PyTorch versions (the tests' path).
 
+With a :class:`~repro_torch.obs.metrics.MetricsCarry` ``M`` and the block's
+telemetry arrays (``tel``: per-event or per-lane clocks, raw completion
+clocks, event indices and copies), both blocks also advance ``M`` once per
+event or row, as the reference's telemetry blocks do; the update reads the
+event arrays and never the worker state, so the state's launches are the
+same with or without it.
+
 Semantics kept from the reference: padded no-op rows are skipped; η may be
 per event ``(E,)`` or per lane ``(E, A)`` (merged rows); η is folded into
 the 0/1 mask in float32 before the cast to the leaf dtype; ``ptr`` indexes
@@ -52,9 +59,14 @@ from repro_torch.kernels.gossip_mix.ops import gossip_mix, masked_gossip_mix
 from repro_torch.kernels.sparse_gossip.ops import (active_set_operands,
                                                   mix_active_leaf,
                                                   scatter_active_rows)
+from repro_torch.obs.metrics import (MetricsCarry, dense_metrics_update,
+                                     sparse_metrics_update)
 from repro_torch.utils.tree import Params
 
 Carry = Tuple[Params, Params, torch.Tensor, torch.Tensor]
+# A block's telemetry arrays (host NumPy): event / per-lane clocks, raw
+# completion clocks, event indices, copies sent per event or row.
+Telemetry = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
 
 def _expand(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -68,8 +80,10 @@ def to_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     so the source may be freed at once; ``non_blocking`` only spares the
     stream synchronisation a blocking copy would add.
     """
-    t = torch.as_tensor(np.ascontiguousarray(x)).to(dtype)
-    return t.to(device, non_blocking=True)
+    a = np.ascontiguousarray(x)
+    if not a.flags.writeable:   # torch wraps only writable arrays
+        a = a.copy()
+    return torch.as_tensor(a).to(dtype).to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +171,9 @@ def select_pool_batch_at(pools: Params, widx: torch.Tensor,
 
 def masked_gossip_scan(W: Params, S: Params, y: torch.Tensor,
                        ptr: torch.Tensor, pools: Params, grad_fn: Callable,
-                       P_seq, grad_masks, restart_masks, etas) -> Carry:
+                       P_seq, grad_masks, restart_masks, etas,
+                       M: Optional[MetricsCarry] = None,
+                       tel: Optional[Telemetry] = None):
     """Advance (W, S, y, ptr) through a whole EventBatch.
 
     ``grad_fn(params, batch)`` is one worker's gradient; it is vmapped over
@@ -165,18 +181,34 @@ def masked_gossip_scan(W: Params, S: Params, y: torch.Tensor,
     (E, n) bools; etas: (E,); all host arrays.  ``ptr`` (n,) int32 counts
     each worker's restarts and picks its pool batch.  Identity-padded no-op
     events leave the carry exact.
+
+    With ``M``, ``tel = (ts, fin, ks, copies)`` -- ts (E,) event clocks,
+    fin (E, n) raw completion clocks, ks (E,) event indices, copies (E,)
+    -- advance ``M`` once per event, and the return is ``(W, S, y, ptr,
+    M)``.
     """
     dev = y.device
     P_seq = to_device(P_seq, torch.float32, dev)
     gms = to_device(grad_masks, torch.bool, dev)
     rms = to_device(restart_masks, torch.bool, dev)
     etas = to_device(etas, torch.float32, dev)
+    if M is not None:
+        ts, fin, ks, copies = tel
+        # one copy: [e, 0] the event's clock, [e, 1:] the completions
+        clocks = to_device(np.concatenate([np.asarray(ts)[:, None], fin],
+                                          axis=1), torch.float32, dev)
     vgrad = torch.func.vmap(grad_fn)
     for e in range(P_seq.shape[0]):
         grads = vgrad(S, select_pool_batch(pools, ptr))
         W, S, y = masked_gossip_step(W, S, y, grads, P_seq[e], gms[e],
                                      rms[e], etas[e])
         ptr = ptr + rms[e].to(ptr.dtype)
+        if M is not None:
+            M = dense_metrics_update(M, P_seq[e], gms[e], rms[e],
+                                     clocks[e, 0], clocks[e, 1:],
+                                     int(ks[e]), int(copies[e]))
+    if M is not None:
+        return W, S, y, ptr, M
     return W, S, y, ptr
 
 
@@ -187,7 +219,8 @@ def masked_gossip_scan(W: Params, S: Params, y: torch.Tensor,
 def sparse_gossip_scan(W: Params, S: Params, y: torch.Tensor,
                        ptr: torch.Tensor, pools: Params, grad_fn: Callable,
                        workers_seq: np.ndarray, P_sub_seq, grad_masks,
-                       restart_masks, etas) -> Carry:
+                       restart_masks, etas, M: Optional[MetricsCarry] = None,
+                       tel: Optional[Telemetry] = None):
     """Advance (W, S, y, ptr) through a SparseEventBatch, in place.
 
     workers_seq: (E, A) int32 host array, ``-1``-padded; P_sub_seq:
@@ -196,6 +229,12 @@ def sparse_gossip_scan(W: Params, S: Params, y: torch.Tensor,
     rows, where one row replays several source events whose η differ).
     A row with no valid lane is a padded no-op and is skipped outright;
     the host decides that, and which lanes are valid, from ``workers_seq``.
+
+    With ``M``, ``tel = (ts, fin, ks, copies)`` -- ts/fin (E, A) per-lane
+    event and raw completion clocks, ks (E, A) per-lane event indices (a
+    merged row carries each member event's own), copies (E,) -- advance
+    ``M`` once per row that is not skipped, and the return is ``(W, S, y,
+    ptr, M)``.
     """
     workers_np = np.asarray(workers_seq)
     E, A = workers_np.shape
@@ -213,12 +252,24 @@ def sparse_gossip_scan(W: Params, S: Params, y: torch.Tensor,
     gm_d = to_device(grad_masks, torch.bool, dev)
     rm_d = to_device(restart_masks, torch.bool, dev)
     eta_d = to_device(etas, torch.float32, dev)
+    if M is not None:
+        ts, fin, ks, copies = tel
+        # one copy: [e, :, 0] the lanes' clocks, [e, :, 1] completions
+        clocks = to_device(np.stack([ts, fin], axis=-1), torch.float32, dev)
+        ks_d = to_device(ks, torch.int32, dev)
     for e in range(E):
         if n_valid[e] == 0:
             continue
         W, S, y, ptr = sparse_event_update(
             W, S, y, ptr, pools, grad_fn, workers_d[e], P_d[e], gm_d[e],
             rm_d[e], eta_d[e], lanes_d[e, :int(n_valid[e])])
+        if M is not None:
+            M = sparse_metrics_update(M, workers_d[e], P_d[e], gm_d[e],
+                                      rm_d[e], clocks[e, :, 0],
+                                      clocks[e, :, 1], ks_d[e],
+                                      int(copies[e]))
+    if M is not None:
+        return W, S, y, ptr, M
     return W, S, y, ptr
 
 

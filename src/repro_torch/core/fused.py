@@ -22,7 +22,13 @@ into one ``lax.scan``; here it is a Python loop over the block's events.
 The stream is the reference's own realization: the same draws, assigned in
 the same device-decided order, the clock in float32.  Its event identities,
 virtual times, communication and restart counters match the reference's
-fused mode exactly (``tests/test_torch_modes.py``).
+fused mode exactly (``tests/test_torch_fused.py``).
+
+With ``telemetry`` the block also streams each event's raw completion
+clock ``t_raw`` beside ``(t_ev, i, p)``; the runner buffers the four
+streams on the device and folds or fetches them once, at drain
+(:func:`~repro_torch.obs.metrics.fused_metrics_fold`,
+:func:`~repro_torch.obs.trace.drain_fused_payload`).
 """
 from __future__ import annotations
 
@@ -51,13 +57,14 @@ class FusedPairBlock:
 
     Every per-event scalar is a (1,)-shaped device tensor and every lookup
     an ``index_select``: indexing with a 0-d integer tensor would read it
-    back to the host, one device sync per lookup.
+    back to the host, one device sync per lookup.  ``telemetry`` adds each
+    event's raw completion clock to the streamed identities.
     """
 
     def __init__(self, loss_fn: Callable, spec: Dict[str, object],
-                 device: torch.device):
+                 device: torch.device, telemetry: bool = False):
         def dev(x, dtype):
-            return torch.tensor(np.asarray(x)).to(device=device, dtype=dtype)
+            return to_device(np.asarray(x), dtype, device)
 
         self.grad_fn = torch.func.grad(loss_fn)
         deg = np.asarray(spec["deg"])
@@ -75,6 +82,7 @@ class FusedPairBlock:
         self.P_self = dev(_P_SELF2, torch.float32)
         self.lane_self = dev(_LANE_SELF2, torch.bool)
         self.copies_pair = int(spec["copies_pair"])
+        self.telemetry = telemetry
         self.minus1 = dev([-1], torch.int64)
         # On a graph without isolated workers both lanes of every event are
         # valid, which the host knows for the whole run; otherwise the
@@ -86,9 +94,9 @@ class FusedPairBlock:
                pools: Params, times: torch.Tensor, lock_free: torch.Tensor,
                factor: torch.Tensor, pick: torch.Tensor, eta: torch.Tensor):
         """One generated event; returns the new ``lock_free`` and the
-        event's identity ``(i, p, t_ev)``: finisher, partner (−1 when
-        isolated) and lock-shifted clock, each (1,).  W, S, y, ptr and
-        times are updated in place."""
+        event's identity ``(i, p, t_ev, t)``: finisher, partner (−1 when
+        isolated), lock-shifted and raw clock, each (1,).  W, S, y, ptr
+        and times are updated in place."""
         i = torch.argmin(times).reshape(1)
         t = times.index_select(0, i)
         d = self.deg.index_select(0, i)
@@ -117,13 +125,13 @@ class FusedPairBlock:
                             lanes, lanes, eta, self.lanes)
         times.index_copy_(0, i, t_ev + self.base.index_select(0, i) * factor)
         p = torch.where(has_nbr, r, self.minus1)
-        return lock_free, i, p, t_ev
+        return lock_free, i, p, t_ev, t
 
     def __call__(self, carry: Carry, pools: Params, times: torch.Tensor,
                  lock_free: torch.Tensor, comm: torch.Tensor,
                  factors: np.ndarray, picks: np.ndarray, etas: np.ndarray
                  ) -> Tuple[Carry, torch.Tensor, torch.Tensor,
-                            Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+                            Tuple[torch.Tensor, ...]]:
         """Advance ``carry = (W, S, y, ptr)`` and the (n,) float32 clock
         ``times`` in place through one block of host draws (each (E,)).
 
@@ -131,7 +139,8 @@ class FusedPairBlock:
         (1,) int64 the running parameter-copy counter, both returned anew.
         Returns ``(carry, lock_free, comm, (t_seq, i_seq, p_seq))``: each
         event's lock-shifted clock, finisher and partner (−1 when
-        isolated), (E,) each on the device.
+        isolated), (E,) each on the device; with ``telemetry`` a fourth
+        stream, each event's raw completion clock.
         """
         W, S, y, ptr = carry
         xs = to_device(np.stack([factors, picks, etas]), torch.float32,
@@ -139,13 +148,17 @@ class FusedPairBlock:
         ts: List[torch.Tensor] = []
         iis: List[torch.Tensor] = []
         ps: List[torch.Tensor] = []
+        raw: List[torch.Tensor] = []
         for e in range(xs.shape[1]):
-            lock_free, i, p, t_ev = self._event(
+            lock_free, i, p, t_ev, t = self._event(
                 W, S, y, ptr, pools, times, lock_free, xs[0, e], xs[1, e],
                 xs[2, e])
             comm = comm + (p >= 0).to(comm.dtype) * self.copies_pair
             ts.append(t_ev)
             iis.append(i)
             ps.append(p)
-        return ((W, S, y, ptr), lock_free, comm,
-                (torch.cat(ts), torch.cat(iis), torch.cat(ps)))
+            raw.append(t)
+        ys = (torch.cat(ts), torch.cat(iis), torch.cat(ps))
+        if self.telemetry:
+            ys += (torch.cat(raw),)
+        return (W, S, y, ptr), lock_free, comm, ys

@@ -39,19 +39,34 @@ Execution model (``mode="auto"`` picks the path with :func:`choose_mode`):
   fetched once when the run ends.
 
 Blocks are not padded to a fixed length as in the reference: PyTorch runs
-eagerly, so there is no compiled block shape to keep.  The reference's
-telemetry, tracing, run log and sanitizer are not part of the port yet;
-asking for them raises.
+eagerly, so there is no compiled block shape to keep.
+
+Observability, as in the reference (:mod:`repro_torch.obs`):
+
+- ``telemetry=True``: per-worker counters in a device-resident
+  :class:`~repro_torch.obs.metrics.MetricsCarry`, advanced per event
+  (``per_event``, ``scan``) or per row (``sparse_scan``), or folded once at
+  drain from the fused block's streamed identities; drained once per run
+  into ``RunResult.telemetry``, with the per-rung bucket occupancy;
+- ``trace=True``: the event-identity stream recorded on the host (the
+  fused mode's in one fetch at drain), its wait-blame summary in
+  ``RunResult.trace`` and the :class:`~repro_torch.obs.trace.Trace` in
+  ``trainer.last_trace``;
+- ``run_log``: a JSONL :class:`~repro_torch.obs.runlog.RunLogger`;
+- ``sanitize``: the run inside
+  :func:`~repro_torch.check.runtime.sanitized`, where only explicit
+  fetches reach the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import warnings
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.check.runtime import fetch, sanitize_enabled, sanitized
 from repro_torch.core.aau import (build_event_step, debiased_average,
                                   masked_gossip_scan, sparse_gossip_scan,
                                   to_device)
@@ -61,6 +76,12 @@ from repro_torch.core.scheduler import (BucketedSparseEventBatch, EventBatch,
                                         merge_event_groups)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
+from repro_torch.obs.critical_path import straggler_tax
+from repro_torch.obs.metrics import (dense_metrics_update,
+                                     fused_metrics_fold, init_metrics,
+                                     metrics_summary)
+from repro_torch.obs.runlog import RunLogger
+from repro_torch.obs.trace import TraceRecorder, drain_fused_payload
 from repro_torch.utils.tree import tree_size, tree_stack
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,7 +127,30 @@ class RunResult:
     total_time: float
     total_comm_copies: int
     param_count: int
+    # scalar width of the trainer's dtype policy; with telemetry=True the
+    # drained counter summary (repro_torch.obs.metrics.metrics_summary);
+    # with trace=True the wait-blame summary
+    # (repro_torch.obs.critical_path.straggler_tax), the full Trace on
+    # ``trainer.last_trace``
     bytes_per_scalar: int = 4
+    telemetry: Optional[Dict] = None
+    trace: Optional[Dict] = None
+
+    def comm_bytes(self, bytes_per_scalar: Optional[int] = None) -> int:
+        bps = self.bytes_per_scalar if bytes_per_scalar is None else bytes_per_scalar
+        return self.total_comm_copies * self.param_count * bps
+
+    def time_to_loss(self, target: float) -> Optional[float]:
+        for p in self.history:
+            if p.loss <= target:
+                return p.time
+        return None
+
+    def iters_to_loss(self, target: float) -> Optional[int]:
+        for p in self.history:
+            if p.loss <= target:
+                return p.k
+        return None
 
 
 class DecentralizedTrainer:
@@ -121,8 +165,11 @@ class DecentralizedTrainer:
         eval_batch,                         # held-out NumPy batch for the global model
         eval_fn: Optional[Callable] = None, # eval_fn(params, batch) -> (loss, metric)
         eta0: float = 0.1,
-        eta_decay: float = 1.0,             # η(k) = η₀ · δᵏ per event
+        eta_decay: float = 1.0,             # η(k) = η₀ · δ^⌊k/every⌋
+        eta_decay_every: int = 1,
         seed: int = 0,
+        same_init: bool = True,             # False: one init_params_fn
+                                            # draw per worker, in order
         mode: str = "auto",                 # "auto" | "scan" | "sparse_scan"
                                             # | "per_event" | "fused"
         block_size: int = 32,               # events per dense block / chunk
@@ -131,18 +178,30 @@ class DecentralizedTrainer:
                                             # bound, cap 1024)
         dtype: str = "float32",             # worker-state dtype policy:
                                             # "float32" | "bfloat16"
+        events_per_step: Optional[int] = None,
+                                            # sparse path: merge up to K
+                                            # conflict-free events per row
+                                            # (None = ~64 lanes per row;
+                                            # 1 disables)
+        native_generation: bool = True,     # sparse path: array-native
+                                            # chunk generation where the
+                                            # scheduler has it (False: the
+                                            # per-event object adapter;
+                                            # the stream is bit-identical)
         device: DeviceLike = "cuda",
-        telemetry: bool = False,
-        trace: bool = False,
-        run_log=None,
-        sanitize: Optional[bool] = None,
+        telemetry: bool = False,            # device-resident per-worker
+                                            # counters, drained once per run
+        trace: bool = False,                # record the event-identity
+                                            # stream (wait-blame summary)
+        run_log: Optional[Union[str, object]] = None,
+                                            # JSONL run log: a path, a
+                                            # file-like object or None
+        sanitize: Optional[bool] = None,    # run inside check.runtime
+                                            # .sanitized() (None: the
+                                            # REPRO_SANITIZE flag)
     ):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        for name, value in (("telemetry", telemetry), ("trace", trace),
-                            ("run_log", run_log), ("sanitize", sanitize)):
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet")
         if dtype not in DTYPES:
             raise ValueError(f"dtype policy must be one of {sorted(DTYPES)}, "
                              f"got {dtype!r}")
@@ -169,31 +228,67 @@ class DecentralizedTrainer:
         self.worker_batch_fn = worker_batch_fn
         self.eval_batch = self._to_device(eval_batch)
         self.eta0, self.eta_decay = eta0, eta_decay
+        self.eta_decay_every = max(1, int(eta_decay_every))
         self.mode = mode
         self.block_size = max(1, block_size)
         self.batch_pool = batch_pool if batch_pool is None else max(1, batch_pool)
-        # every worker starts from the same parameters
-        p0 = init_params_fn(torch.Generator().manual_seed(seed))
+        self.events_per_step = events_per_step
+        self.native_generation = native_generation
+        self.telemetry = bool(telemetry)
+        self.trace = bool(trace)
+        self.sanitize = bool(sanitize_enabled() if sanitize is None
+                             else sanitize)
+        self._log = RunLogger(run_log)
+        gen = torch.Generator().manual_seed(seed)
+        if same_init:
+            params = [init_params_fn(gen)] * self.n
+        else:
+            params = [init_params_fn(gen) for _ in range(self.n)]
         # Push-sum weights y stay float32 under either dtype policy: they
         # are n scalars and de-biasing divides by them.
-        self.W = self._cast(self._to_device(tree_stack([p0] * self.n)))
+        self.W = self._cast(self._to_device(tree_stack(params)))
         # S is updated in place by the sparse path, so it never shares W's
         # storage (the reference broke the same alias before donating)
         self.S = {k: v.clone() for k, v in self.W.items()}
         self.y = torch.ones((self.n,), dtype=torch.float32, device=self.device)
-        self.param_count = tree_size(p0)
+        self.param_count = tree_size(params[0])
         self._pools = None          # (n, batch_pool, ...) device sample pools
         self._pool_len = 0
         self._ptr = None            # (n,) int32 restart counters
-        self._warned_wrap = False
         self._step = None           # per_event: the event step
         self._batches = None        # per_event: (n, ...) current batches
         self._draw_count = np.zeros(self.n, dtype=np.int64)
         self._pair_block = None     # fused: the generate-and-consume block
         self._pair_clock = None     # fused: (times, lock_free) on the device
+        self._set_up = set()        # modes whose update path is set up
+        self._metrics = None        # MetricsCarry of the current run
+        self._bucket_occ = None     # per-rung occupancy of the current run
+        self._fused_payload = None  # fused: per-block device identity
+                                    #   streams, folded once at drain
+        self._trace = None          # TraceRecorder of the current run
+        self.last_trace = None      # finalized Trace of the latest run
+        self.sanitizer_stats = None # SanitizerStats of the latest
+                                    #   sanitized run
 
     def _to_device(self, tree) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in tree.items()}
+        """A dict of host arrays or tensors on the trainer's device; host
+        arrays go up without waiting for queued device work."""
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.as_tensor(np.ascontiguousarray(v))
+                    ).to(self.device, non_blocking=True)
+                for k, v in tree.items()}
+
+    @property
+    def _itemsize(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def _note_set_up(self, key: str) -> None:
+        """Log the first set-up of a mode's update path (the reference's
+        ``compile`` record)."""
+        if key not in self._set_up:
+            self._set_up.add(key)
+            self._log.log("compile", key=key, telemetry=self.telemetry,
+                          trace=self.trace)
 
     def _cast(self, tree) -> Dict[str, torch.Tensor]:
         """Apply the worker-state dtype policy to a dict's float leaves."""
@@ -203,6 +298,7 @@ class DecentralizedTrainer:
     # -- per_event state ---------------------------------------------------
     def _ensure_per_event(self) -> None:
         if self._step is None:
+            self._note_set_up("per_event")
             self._step = build_event_step(self.loss_fn)
             self._batches = self._cast(self._to_device(
                 tree_stack([self._draw(i) for i in range(self.n)])))
@@ -267,47 +363,91 @@ class DecentralizedTrainer:
             self._ptr = torch.zeros((self.n,), dtype=torch.int32,
                                     device=self.device)
 
-    def _etas(self, offsets: np.ndarray) -> np.ndarray:
+    def _etas(self, offsets) -> np.ndarray:
         """Step sizes of the events at stream positions ``offsets``."""
-        return self.eta0 * self.eta_decay ** offsets
+        return self.eta0 * self.eta_decay ** (
+            np.asarray(offsets) // self.eta_decay_every)
 
     # -- dense path --------------------------------------------------------
+    def _ensure_scan(self, max_events: Optional[int] = None,
+                     max_time: Optional[float] = None) -> None:
+        self._note_set_up("scan")
+        self._ensure_pools(max_events, max_time)
+
     def _dispatch_block(self, batch: EventBatch, rounds: int) -> None:
-        """Advance (W, S, y, ptr) through one dense block."""
-        self.W, self.S, self.y, self._ptr = masked_gossip_scan(
-            self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
-            batch.P, batch.grad_workers, batch.restart_workers,
-            self._etas(rounds + np.arange(batch.E)))
+        """Advance (W, S, y, ptr) -- and, with telemetry, the metrics --
+        through one dense block."""
+        self._log.log("block_dispatch", mode="scan", events=batch.E,
+                      rounds=rounds)
+        args = (self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
+                batch.P, batch.grad_workers, batch.restart_workers,
+                self._etas(rounds + np.arange(batch.E)))
+        if not self.telemetry:
+            self.W, self.S, self.y, self._ptr = masked_gossip_scan(*args)
+            return
+        fin = (batch.finish if batch.finish is not None
+               else np.broadcast_to(batch.times[:, None], (batch.E, self.n)))
+        (self.W, self.S, self.y, self._ptr,
+         self._metrics) = masked_gossip_scan(
+            *args, M=self._metrics,
+            tel=(batch.times, fin, rounds + np.arange(batch.E),
+                 batch.param_copies_sent))
 
     # -- fused path --------------------------------------------------------
     def _ensure_fused(self, max_events: Optional[int] = None) -> None:
         if self._pair_block is None:
+            self._note_set_up("fused")
+            # trace reads the same widened block outputs as telemetry
             self._pair_block = FusedPairBlock(
-                self.loss_fn, self.scheduler.fused_spec(), self.device)
+                self.loss_fn, self.scheduler.fused_spec(), self.device,
+                telemetry=self.telemetry or self.trace)
         self._ensure_pools(max_events)
 
     # -- sparse path -------------------------------------------------------
+    def _ensure_sparse(self, max_events: Optional[int] = None,
+                       max_time: Optional[float] = None) -> None:
+        self._note_set_up("sparse_scan")
+        self._ensure_pools(max_events, max_time)
+
     def _dispatch_sparse_block(self, batch: SparseEventBatch, rounds: int,
-                               lane_off: Optional[np.ndarray] = None) -> None:
+                               lane_off: Optional[np.ndarray] = None,
+                               lane_ts: Optional[np.ndarray] = None) -> None:
         """Advance the carry through one active-set block, O(A·D) per event.
 
         ``lane_off`` marks ``batch`` as the output of ``merge_event_groups``:
         (E, A) absolute source-event offsets per lane, from which per-*lane*
         step sizes are built (each merged lane keeps the η its source event
-        would have used, so merging stays exact).
+        would have used, so merging stays exact).  ``lane_ts`` (telemetry,
+        merged rows) carries the matching per-lane source-event clocks.
         """
-        etas = self._etas(rounds + (np.arange(batch.E) if lane_off is None
-                                    else lane_off))
-        self.W, self.S, self.y, self._ptr = sparse_gossip_scan(
-            self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
-            batch.workers, batch.P_sub, batch.grad_workers,
-            batch.restart_workers, etas)
+        E, A = batch.workers.shape
+        self._log.log("block_dispatch", mode="sparse_scan", events=E,
+                      lanes=A, rounds=rounds, merged=lane_off is not None)
+        offsets = np.arange(E) if lane_off is None else lane_off
+        etas = self._etas(rounds + offsets)
+        args = (self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
+                batch.workers, batch.P_sub, batch.grad_workers,
+                batch.restart_workers, etas)
+        if not self.telemetry:
+            self.W, self.S, self.y, self._ptr = sparse_gossip_scan(*args)
+            return
+        # per-lane event indices and clocks: an unmerged row's lanes share
+        # its event; a merged row's lanes keep their source event's
+        ks = np.broadcast_to((rounds + offsets).reshape(E, -1), (E, A))
+        ts = (np.broadcast_to(batch.times[:, None], (E, A))
+              if lane_off is None else lane_ts)
+        fin = batch.finish if batch.finish is not None else ts
+        (self.W, self.S, self.y, self._ptr,
+         self._metrics) = sparse_gossip_scan(
+            *args, M=self._metrics,
+            tel=(ts, fin, ks, batch.param_copies_sent))
 
-    @staticmethod
-    def _events_per_step(A: int) -> int:
-        """Events merged per row at lane width ``A``: a ~64-lane budget per
-        row (A=2 pairs merge 16-deep, A=16 rungs ~4 cliques, A≥64 rungs stay
-        unmerged)."""
+    def _events_per_step(self, A: int) -> int:
+        """Events merged per row at lane width ``A``: ``events_per_step``
+        when set, else a ~64-lane budget per row (A=2 pairs merge 16-deep,
+        A=16 rungs ~4 cliques, A≥64 rungs stay unmerged)."""
+        if self.events_per_step is not None:
+            return max(1, int(self.events_per_step))
         return int(np.clip(64 // max(A, 1), 1, 16))
 
     def _dispatch_sparse_chunk(self, batch: SparseEventBatch, rounds: int,
@@ -326,13 +466,17 @@ class DecentralizedTrainer:
             return
         merged, lane_off = merge_event_groups(batch, K)
         g_cap = max(1, cap // K)
+        # telemetry: the lanes' source-event clocks, gathered once a chunk
+        lane_ts = batch.times[lane_off] if self.telemetry else None
         start = 0
         while start < merged.E:
             stop = min(merged.E, start + g_cap)
             # lane_off holds absolute source offsets within ``batch``, so
             # ``rounds`` stays the chunk base across slices
-            self._dispatch_sparse_block(merged.slice(start, stop), rounds,
-                                        lane_off=lane_off[start:stop])
+            self._dispatch_sparse_block(
+                merged.slice(start, stop), rounds,
+                lane_off=lane_off[start:stop],
+                lane_ts=None if lane_ts is None else lane_ts[start:stop])
             start = stop
 
     # Base chunk length for the narrowest bucket of a multi-bucket ladder.
@@ -353,7 +497,71 @@ class DecentralizedTrainer:
         stream's maximal same-bucket runs, each at its bucket's lane width."""
         for b, off, seg in bucketed.segment_batches():
             cap = self._bucket_cap(bucketed.buckets, b, target)
+            self._log.log("bucket_segment", A=int(bucketed.buckets[b]),
+                          events=seg.E, rounds=rounds + off)
             self._dispatch_sparse_chunk(seg, rounds + off, cap)
+
+    def _accum_occupancy(self, rows: List[Dict[str, float]]) -> None:
+        """Fold one chunk's per-rung packing stats into the run aggregate."""
+        for r in rows:
+            if not r["events"]:
+                continue
+            acc = self._bucket_occ.setdefault(int(r["A"]),
+                                              {"events": 0, "lanes": 0.0})
+            acc["events"] += int(r["events"])
+            acc["lanes"] += float(r["lane_fill"]) * r["events"] * r["A"]
+
+    # -- drain ---------------------------------------------------------------
+    def _telemetry_summary(self, t_end: float) -> Optional[Dict]:
+        """Drain the device counters once (logged before ``run_end``)."""
+        if not self.telemetry:
+            return None
+        if self._fused_payload:
+            # fold the whole fused run's streamed identities at once (event
+            # indices restart at 0 with the per-run counter reset)
+            t_ev, i_seq, p_seq, t_raw = (
+                torch.cat(xs) if len(xs) > 1 else xs[0]
+                for xs in zip(*self._fused_payload))
+            self._metrics = fused_metrics_fold(
+                self._metrics, i_seq, p_seq, t_raw, t_ev,
+                self._pair_block.copies_pair, 0)
+            self._fused_payload = []
+        summary = metrics_summary(
+            self._metrics, t_end,
+            n_minus_1_bound=self.scheduler.name == "dsgd_aau")
+        summary["comm_bytes_per_copy"] = self.param_count * self._itemsize
+        if self._bucket_occ:
+            summary["bucket_occupancy"] = [
+                {"A": A, "events": acc["events"],
+                 "lane_fill": acc["lanes"] / (acc["events"] * A)}
+                for A, acc in sorted(self._bucket_occ.items())]
+        bound = summary.get("staleness_bound")
+        if bound is not None:
+            self._log.log("staleness_bound", **bound)
+            if not bound["ok"]:
+                self._log.warn_once(
+                    "staleness_bound",
+                    f"DSGD-AAU staleness monitor: observed max staleness "
+                    f"{bound['observed_max']} exceeds the 2N-4 bound "
+                    f"({bound['bound']}) induced by the B <= N-1 per-epoch "
+                    "commit bound -- the scheduler violated the paper's "
+                    "bounded-staleness guarantee.")
+        return summary
+
+    def _trace_summary(self) -> Optional[Dict]:
+        """Finalize the recorded identity stream; one device fetch at most
+        (a fused run's buffered blocks).  Runs before the telemetry drain,
+        which consumes the fused payload."""
+        if not self.trace:
+            return None
+        if self._fused_payload:
+            self._trace.record_fused(
+                *drain_fused_payload(self._fused_payload),
+                copies_pair=self._pair_block.copies_pair)
+        tr = self._trace.finalize(algorithm=self.scheduler.name,
+                                  mode=self.mode)
+        self.last_trace = tr
+        return straggler_tax(tr)
 
     def warmup(self, max_events: Optional[int] = None,
                max_time: Optional[float] = None) -> None:
@@ -395,7 +603,10 @@ class DecentralizedTrainer:
                 torch.zeros(1, dtype=torch.int64, device=dev),
                 zeros, zeros, zeros)
         else:
-            self._ensure_pools(max_events, max_time)
+            if self.mode == "scan":
+                self._ensure_scan(max_events, max_time)
+            else:
+                self._ensure_sparse(max_events, max_time)
             lanes = {k: s[:2] for k, s in self.S.items()}
             batch = {k: p[:2, 0] for k, p in self._pools.items()}
             torch.func.vmap(self.grad_fn)(lanes, batch)
@@ -407,13 +618,50 @@ class DecentralizedTrainer:
             eval_every: int = 10) -> RunResult:
         if not (max_events or max_time):
             raise ValueError("bound the run by events or virtual time")
-        if self.mode == "fused":
-            return self._run_fused(max_events, max_time, eval_every)
-        if self.mode == "per_event":
-            return self._run_per_event(max_events, max_time, eval_every)
-        if self.mode == "sparse_scan":
-            return self._run_sparse_stream(max_events, max_time, eval_every)
-        return self._run_scan(max_events, max_time, eval_every)
+        if self.telemetry:
+            # fresh counters per run: event indices (the staleness clock)
+            # restart at 0 every run
+            self._metrics = init_metrics(self.n, self.device)
+            self._bucket_occ = {}
+        self._fused_payload = []
+        if self.trace:
+            self._trace = TraceRecorder(self.n)
+        self._log.log("run_start", algorithm=self.scheduler.name, n=self.n,
+                      mode=self.mode, max_events=max_events,
+                      max_time=max_time, eval_every=eval_every,
+                      dtype=str(self.dtype).replace("torch.", ""),
+                      telemetry=self.telemetry, trace=self.trace)
+        if self.mode == "fused" or getattr(self.scheduler, "horizon", None):
+            self._log.warn_once(
+                "rng_order",
+                "event stream is a different-but-deterministic RNG-order "
+                "realization (horizon batching / fused generation): "
+                "distributionally identical to the exact per-event stream, "
+                "not bit-identical to it.", warn=False)
+        with self._maybe_sanitized():
+            if self.mode == "fused":
+                return self._run_fused(max_events, max_time, eval_every)
+            if self.mode == "per_event":
+                return self._run_per_event(max_events, max_time, eval_every)
+            if self.mode == "sparse_scan":
+                return self._run_sparse_stream(max_events, max_time,
+                                               eval_every)
+            return self._run_scan(max_events, max_time, eval_every)
+
+    @contextlib.contextmanager
+    def _maybe_sanitized(self):
+        """The runtime sanitizer around the driving loop when enabled: every
+        implicit device→host transfer raises; the run's explicit fetches
+        are counted in ``sanitizer_stats``."""
+        if not self.sanitize:
+            yield
+            return
+        cuda = self.device.type == "cuda"
+        self._log.log("sanitize", conversion_guard=True,
+                      sync_debug_mode="error" if cuda else None)
+        with sanitized(self.device) as stats:
+            self.sanitizer_stats = stats
+            yield
 
     def _new_eval_buffer(self, max_events: Optional[int],
                          eval_every: int) -> torch.Tensor:
@@ -421,7 +669,7 @@ class DecentralizedTrainer:
         return torch.zeros((rows, 2), dtype=torch.float32, device=self.device)
 
     def _run_scan(self, max_events, max_time, eval_every) -> RunResult:
-        self._ensure_pools(max_events, max_time)
+        self._ensure_scan(max_events, max_time)
         bound = self.scheduler.edge_bound()
         # with eval_every < block_size every block is eval_every events
         target = min(self.block_size, eval_every)
@@ -454,6 +702,10 @@ class DecentralizedTrainer:
             flush = len(buf) >= min(target, until_eval) or (exhausted and buf)
             if not flush:
                 continue
+            if self.trace:
+                # recorded before packing: the same object events the
+                # per-event path replays
+                self._trace.record_events(buf)
             self._dispatch_block(EventBatch.from_events(buf, edge_bound=bound),
                                  rounds)
             rounds += len(buf)
@@ -462,7 +714,6 @@ class DecentralizedTrainer:
                 eval_buf = self._record_eval(eval_buf, len(meta))
                 meta.append((k, t, comm,
                              float(np.mean(active_sizes[-eval_every:]))))
-        self._warn_pool_wrap(rounds)
         return self._finish(eval_buf, meta, k, t, comm, rounds, active_sizes)
 
     def _run_per_event(self, max_events, max_time, eval_every) -> RunResult:
@@ -484,9 +735,21 @@ class DecentralizedTrainer:
             k, t = ev.k, ev.time
             comm += ev.param_copies_sent
             active_sizes.append(ev.n_active)
+            if self.trace:
+                self._trace.record_event(ev)
+            P, gm, rm, eta = self._event_operands(ev, self._etas(rounds))
             self.W, self.S, self.y = self._step(
-                self.W, self.S, self.y, self._batches,
-                *self._event_operands(ev, self._etas(rounds)))
+                self.W, self.S, self.y, self._batches, P, gm, rm, eta)
+            if self.telemetry:
+                # the event's clock, then the lanes' raw completion clocks
+                # scattered over the event-time base
+                clocks = np.full(self.n + 1, ev.time)
+                if ev.finish_lanes is not None and len(ev.workers):
+                    clocks[1 + ev.workers] = ev.finish_lanes
+                clocks = to_device(clocks, torch.float32, self.device)
+                self._metrics = dense_metrics_update(
+                    self._metrics, P, gm, rm, clocks[0], clocks[1:], rounds,
+                    ev.param_copies_sent)
             self._refresh_batches(ev.workers[ev.restart_lanes])
             rounds += 1
             if rounds % eval_every == 0:
@@ -532,9 +795,16 @@ class DecentralizedTrainer:
             E = min(blk, until_eval, max_events - rounds)
             factors, picks = sched.fused_draws(E)
             etas = self._etas(rounds + np.arange(E)).astype(np.float32)
-            carry, lock_free, comm, (t_seq, _, _) = self._pair_block(
+            self._log.log("block_dispatch", mode="fused", events=E,
+                          rounds=rounds)
+            carry, lock_free, comm, ys = self._pair_block(
                 carry, self._pools, times, lock_free, comm, factors, picks,
                 etas)
+            if self.telemetry or self.trace:
+                # the block's (t_ev, i, p, t_raw) streams stay on the
+                # device until the drain folds or fetches them
+                self._fused_payload.append(ys)
+            t_seq = ys[0]
             rounds += E
             if rounds % eval_every == 0 or rounds >= max_events:
                 eval_buf = self._record_eval(eval_buf, len(meta), t_seq[-1:],
@@ -542,8 +812,7 @@ class DecentralizedTrainer:
                 meta.append((rounds - 1, rounds))
         self.W, self.S, self.y, self._ptr = carry
         self._pair_clock = (times, lock_free)
-        self._warn_pool_wrap(rounds)
-        vals = eval_buf[:len(meta)].cpu().numpy()  # the run's one fetch
+        vals = self._fetch_history(eval_buf, len(meta), rounds)
         # comm is exact through float32 up to 2^24 copies; pair-event counts
         # (comm deltas / copies per pair) back out the mean active-set size:
         # 2 lanes per pair event, 1 per isolated-worker event
@@ -561,17 +830,24 @@ class DecentralizedTrainer:
                 comm_param_copies=comm_i,
                 n_active_mean=(E_i + min(pairs, E_i)) / max(E_i, 1)))
             prev_comm, prev_rounds = comm_i, mr
+        t_end = history[-1].time
+        trc = self._trace_summary()   # before telemetry: it clears payload
+        tel = self._telemetry_summary(t_end)
+        self._log.log("run_end", rounds=rounds, t=t_end,
+                      comm=history[-1].comm_param_copies)
         return RunResult(
             algorithm=sched.name, history=history,
             final_loss=history[-1].loss, final_metric=history[-1].metric,
-            total_events=rounds, total_time=history[-1].time,
+            total_events=rounds, total_time=t_end,
             total_comm_copies=history[-1].comm_param_copies,
-            param_count=self.param_count,
-            bytes_per_scalar=torch.empty((), dtype=self.dtype).element_size())
+            param_count=self.param_count, bytes_per_scalar=self._itemsize,
+            telemetry=tel, trace=trc)
 
     def _run_sparse_stream(self, max_events, max_time, eval_every) -> RunResult:
-        """The sparse path's driving loop, over packed chunks in stream order."""
-        self._ensure_pools(max_events, max_time)
+        """The sparse path's driving loop, over packed chunks in stream order
+        (generated array-natively where the scheduler can, unless
+        ``native_generation=False``)."""
+        self._ensure_sparse(max_events, max_time)
         target = min(self.block_size, eval_every)
         eval_buf = self._new_eval_buffer(max_events, eval_every)
         meta: List[Tuple[int, float, int, float]] = []  # (k, t, comm, a_mean)
@@ -580,7 +856,7 @@ class DecentralizedTrainer:
         t = 0.0
         k = -1
         rounds = 0
-        stream = self.scheduler.packed_stream()
+        stream = self.scheduler.packed_stream(native=self.native_generation)
         exhausted = False
         while not exhausted:
             until_eval = eval_every - rounds % eval_every
@@ -606,38 +882,58 @@ class DecentralizedTrainer:
             active_sizes.extend(chunk.stream_n_active().tolist())
             t = float(tms[-1])
             k = rounds + chunk.E - 1
+            if self.trace:
+                # the pre-merge packed arrays (a bucketed chunk segment by
+                # segment, in stream order)
+                self._trace.record_chunk(chunk)
             if isinstance(chunk, BucketedSparseEventBatch):
+                if self.telemetry:
+                    self._accum_occupancy(chunk.occupancy())
                 self._dispatch_bucketed(chunk, rounds, target)
             else:
+                if self.telemetry:
+                    self._accum_occupancy([{
+                        "A": int(chunk.A), "events": int(chunk.E),
+                        "lane_fill": float(chunk.n_workers.sum())
+                        / max(chunk.E * chunk.A, 1)}])
                 self._dispatch_sparse_chunk(chunk, rounds, target)
             rounds += chunk.E
             if rounds % eval_every == 0:
                 eval_buf = self._record_eval(eval_buf, len(meta))
                 meta.append((k, t, comm,
                              float(np.mean(active_sizes[-eval_every:]))))
-        self._warn_pool_wrap(rounds)
         return self._finish(eval_buf, meta, k, t, comm, rounds, active_sizes)
 
-    def _warn_pool_wrap(self, rounds: int) -> None:
-        max_ptr = int(self._ptr.max()) if rounds else 0
-        if max_ptr > self._pool_len and not self._warned_wrap:
-            self._warned_wrap = True
-            warnings.warn(
+    def _fetch_history(self, eval_buf: torch.Tensor, rows: int,
+                       rounds: int) -> np.ndarray:
+        """The run's eval rows on the host, with the restart counters' max
+        for the pool-wrap check, in one explicit fetch."""
+        if self._ptr is None:   # per_event draws its batches on the host
+            return fetch(eval_buf[:rows])
+        vals, max_ptr = fetch(eval_buf[:rows], self._ptr.max())
+        if rounds and int(max_ptr) > self._pool_len:
+            self._log.warn_once(
+                "pool_wrap",
                 f"batch pool of {self._pool_len} draws/worker wrapped (max "
-                f"restarts {max_ptr}): samples were revisited cyclically; "
-                "raise batch_pool (or bound the run by max_events) for exact "
-                "per-event sampling semantics.", stacklevel=3)
+                f"restarts {int(max_ptr)}): samples were revisited "
+                "cyclically; raise batch_pool (or bound the run by "
+                "max_events) for exact per-event sampling semantics.")
+        return vals
 
     # -- on-device eval history -------------------------------------------
     def _eval_row(self) -> torch.Tensor:
         """[loss, metric] of the de-biased network average, on the device."""
+        def f32(x):
+            # a Python number becomes a device scalar without a copy
+            if isinstance(x, torch.Tensor):
+                return x.to(torch.float32)
+            return torch.full((), float(x), dtype=torch.float32,
+                              device=self.device)
+
         with torch.no_grad():
             loss, metric = self.eval_fn(debiased_average(self.W, self.y),
                                         self.eval_batch)
-            return torch.stack([
-                torch.as_tensor(loss, dtype=torch.float32, device=self.device),
-                torch.as_tensor(metric, dtype=torch.float32,
-                                device=self.device)])
+            return torch.stack([f32(loss), f32(metric)])
 
     def _record_eval(self, eval_buf: torch.Tensor, i: int,
                      *extra: torch.Tensor) -> torch.Tensor:
@@ -655,16 +951,31 @@ class DecentralizedTrainer:
         eval_buf = self._record_eval(eval_buf, len(meta))
         meta.append((k, t, comm,
                      float(np.mean(active_sizes)) if active_sizes else 0.0))
-        vals = eval_buf[:len(meta)].cpu().numpy()  # the run's one fetch
+        vals = self._fetch_history(eval_buf, len(meta), rounds)
         history = [
             HistoryPoint(k=mk, time=mt, loss=float(vals[i, 0]),
                          metric=float(vals[i, 1]), comm_param_copies=mc,
                          n_active_mean=ma)
             for i, (mk, mt, mc, ma) in enumerate(meta)]
+        trc = self._trace_summary()
+        tel = self._telemetry_summary(t)
+        self._log.log("run_end", rounds=rounds, t=t, comm=comm)
         return RunResult(
             algorithm=self.scheduler.name, history=history,
             final_loss=history[-1].loss, final_metric=history[-1].metric,
             total_events=rounds, total_time=t, total_comm_copies=comm,
-            param_count=self.param_count,
-            bytes_per_scalar=torch.empty((), dtype=self.dtype).element_size(),
-        )
+            param_count=self.param_count, bytes_per_scalar=self._itemsize,
+            telemetry=tel, trace=trc)
+
+
+def run_algorithms(
+    algorithms: Dict[str, Scheduler],
+    make_trainer: Callable[[Scheduler], DecentralizedTrainer],
+    **run_kw,
+) -> Dict[str, RunResult]:
+    """Run several algorithms under identical model/data settings."""
+    out = {}
+    for name, sched in algorithms.items():
+        trainer = make_trainer(sched)
+        out[name] = trainer.run(**run_kw)
+    return out

@@ -9,7 +9,7 @@ input reduced to the synthetic data's 64 features): 64 → 256 → 256 → 10,
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -99,24 +99,38 @@ def build_scenario(spec: ExperimentSpec, name: str, n: int,
     return get_scenario(name, n=n, seed=seed, **kw)
 
 
+Params = Mapping[str, torch.Tensor]
+
+
 def build_trainer(spec: ExperimentSpec, alg: str, n: int, seed: int,
                   scenario: Optional[Scenario] = None,
                   dtype: Optional[str] = None,
                   batch_pool: Optional[int] = None,
                   device: DeviceLike = "cuda",
-                  init_params: Optional[Mapping[str, torch.Tensor]] = None
+                  init_params: Optional[Union[Params, Sequence[Params]]] = None
                   ) -> DecentralizedTrainer:
     """One (algorithm × topology × scenario × scale × seed) trainer.
 
-    ``init_params`` (one worker's parameters, e.g. from
-    :func:`params_from_numpy`) replaces the torch-native init; the trainer
-    stacks it over the n workers.
+    ``init_params`` replaces the torch-native init: one worker's parameters
+    (e.g. from :func:`params_from_numpy`), which the trainer stacks over the
+    n workers, or a sequence of n, one per worker (``same_init=False``,
+    the reference's per-worker keys carried across).
     """
     if scenario is None:
         scenario = build_scenario(spec, spec.scenarios[0], n, seed)
-    if spec.telemetry or spec.trace or spec.run_log:
-        raise NotImplementedError(
-            "telemetry, trace and run_log are not ported yet")
+    same_init = True
+    if init_params is None:
+        init_fn = mlp2nn_init()
+    elif isinstance(init_params, Mapping):
+        fixed = dict(init_params)
+        init_fn = lambda gen: fixed  # noqa: E731
+    else:
+        if len(init_params) != n:
+            raise ValueError(f"init_params holds {len(init_params)} workers' "
+                             f"parameters for n={n}")
+        per_worker = iter(init_params)
+        init_fn = lambda gen: dict(next(per_worker))  # noqa: E731
+        same_init = False
     data = ClassificationData(
         n_workers=n, d=64, partition=spec.partition,
         samples_per_worker=256, seed=spec.data_seed)
@@ -129,16 +143,12 @@ def build_trainer(spec: ExperimentSpec, alg: str, n: int, seed: int,
     if alg in ("ad_psgd", "agp") and spec.horizon:
         sched_kw["horizon"] = spec.horizon
     sched = make_scheduler(alg, g, scenario, **sched_kw)
-    if init_params is not None:
-        fixed = dict(init_params)
-        init_fn = lambda gen: fixed  # noqa: E731
-    else:
-        init_fn = mlp2nn_init()
     return DecentralizedTrainer(
         sched, mlp2nn_loss, init_fn,
         lambda w, s: data.batch(w, s, batch_size=32),
         data.eval_batch(1024), eval_fn=mlp2nn_eval,
         eta0=spec.eta0, eta_decay=spec.eta_decay, seed=seed,
-        mode=spec.mode, block_size=spec.block_size,
+        same_init=same_init, mode=spec.mode, block_size=spec.block_size,
         batch_pool=batch_pool if batch_pool is not None else spec.batch_pool,
-        dtype=dtype or spec.dtype, device=device)
+        dtype=dtype or spec.dtype, device=device,
+        telemetry=spec.telemetry, trace=spec.trace, run_log=spec.run_log)

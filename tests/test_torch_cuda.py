@@ -510,3 +510,94 @@ def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
         serve.BatchedServer(cfg, model, 4, 140).run(reqs)
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1]
+
+
+# -- observability on the card ------------------------------------------------
+
+_SUMMARY_FLOATS = ("busy_t", "idle_t", "utilization", "utilization_mean",
+                   "mix_age", "stale_mean")
+
+
+def _same_summary(a, b):
+    """Telemetry summaries: integers exactly, floats within 1e-4."""
+    assert a.keys() == b.keys()
+    for key in a:
+        if key in _SUMMARY_FLOATS:
+            np.testing.assert_allclose(b[key], a[key], rtol=0, atol=1e-4)
+        elif key == "bucket_occupancy":
+            assert [(r["A"], r["events"]) for r in b[key]] == \
+                [(r["A"], r["events"]) for r in a[key]]
+        else:
+            assert b[key] == a[key], key
+
+
+@pytest.mark.parametrize("alg,mode,n", [("dsgd_aau", "sparse_scan", 32),
+                                        ("dsgd_sync", "scan", 16),
+                                        ("dsgd_aau", "per_event", 16),
+                                        ("ad_psgd", "fused", 16)])
+def test_telemetry_and_trace_on_the_card_match_the_cpu(cuda, alg, mode, n):
+    """The device-resident counters and the traced identity stream agree
+    between the card and the CPU: integer counters and trace arrays
+    exactly, float counters within 1e-4, the wait-blame summary within
+    1e-6."""
+    spec = ExperimentSpec(scales=(n,), mode=mode, max_time=None,
+                          max_events=64, telemetry=True, trace=True)
+    w0 = mlp2nn_init()(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        tr = build_trainer(spec, alg, n, 0, device=dev, batch_pool=64,
+                           init_params={k: v.to(dev) for k, v in w0.items()})
+        runs[dev.type] = (tr, tr.run(max_events=64, eval_every=16))
+    (tg, rg), (tc, rc) = runs["cuda"], runs["cpu"]
+    _same_summary(rc.telemetry, rg.telemetry)
+    assert rg.telemetry["comm_copies"] == rg.total_comm_copies
+    for key in ("times", "copies", "lane_ev", "lane_worker", "lane_fin",
+                "lane_grad", "lane_restart", "edge_ev", "edge_src",
+                "edge_dst"):
+        np.testing.assert_array_equal(getattr(tg.last_trace, key),
+                                      getattr(tc.last_trace, key))
+    for key in ("straggler_tax", "busy_t", "wait_t", "blame_total",
+                "residual_wait"):
+        assert abs(rg.trace[key] - rc.trace[key]) <= 1e-6
+
+
+@pytest.mark.parametrize("alg,mode", [("dsgd_aau", "sparse_scan"),
+                                      ("ad_psgd", "fused")])
+def test_sanitized_run_on_the_card(cuda, alg, mode, monkeypatch):
+    """Under the sanitizer (CUDA's sync debug mode set to error) a run with
+    telemetry and trace makes only its explicit fetches; a synchronising
+    call slipped into the loop raises."""
+    spec = ExperimentSpec(scales=(32,), mode=mode, max_time=None,
+                          max_events=64, telemetry=True, trace=True)
+    tr = build_trainer(spec, alg, 32, 0, device=cuda, batch_pool=64)
+    tr.sanitize = True
+    tr.warmup(max_events=64)
+    res = tr.run(max_events=64, eval_every=16)
+    # eval history + telemetry drain, and the fused trace drain
+    assert tr.sanitizer_stats.fetches == (3 if mode == "fused" else 2)
+    assert res.telemetry["comm_copies"] == res.total_comm_copies
+    assert torch.cuda.get_sync_debug_mode() == 0
+    block = ("_dispatch_sparse_block" if mode == "sparse_scan"
+             else "_record_eval")
+    orig = getattr(type(tr), block)
+
+    def leaky(self, *args, **kw):
+        self.y.cpu()                       # a blocking device→host copy
+        return orig(self, *args, **kw)
+
+    monkeypatch.setattr(type(tr), block, leaky)
+    with pytest.raises(RuntimeError):
+        tr.run(max_events=64, eval_every=16)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_cli_on_the_card_names_the_card(cuda, tmp_path):
+    from repro_torch.xp.__main__ import main
+    out = tmp_path / "smoke.json"
+    assert main(["--preset", "fused_smoke", "--telemetry", "--trace",
+                 "--out", str(out)]) == 0
+    import json
+    meta = json.loads(out.read_text())["meta"]
+    assert meta["device"] == torch.cuda.get_device_name(0)
+    assert meta["power_limit"].endswith("W")
+    assert meta["torch"] == torch.__version__

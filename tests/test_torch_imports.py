@@ -28,6 +28,12 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.models.transformer" in mods
     assert "repro_torch.core.fused" in mods
+    assert {"repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.obs.critical_path",
+            "repro_torch.obs.runlog", "repro_torch.check",
+            "repro_torch.check.runtime", "repro_torch.xp.__main__",
+            "repro_torch.xp.sweep", "repro_torch.xp.artifacts",
+            "repro_torch.xp.presets"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
