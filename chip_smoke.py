@@ -65,8 +65,30 @@ non-zero, printing no result, when there is none or when any phase fails:
     (fused AD-PSGD 1024 events, the reference's contract being under 10 %);
     then one sanitized ``sparse_scan`` run at N=256, its explicit fetches
     counted;
+16. the dense serve path: qwen3-8b at full width in bfloat16 (random
+    weights from a seeded generator) behind ``BatchedServer``, phase 6's
+    traffic, counters zeroed before each wave and read after it
+    (``swa_attention`` once per layer per prefill, no window);
+17. decentralized LM training through the LM example's trainer
+    (``repro_torch.examples.decentralized_lm.build_trainer``): the 100m
+    preset (126.6 M parameters, float32) at N=8, seq 64, batch 8,
+    DSGD-AAU, 60 events under ``mode="auto"`` (the dense scan,
+    ``masked_gossip``) and under ``mode="sparse_scan"`` one event a row
+    (``sparse_gossip`` at A = 8, ``scatter_rows``); then the paper's
+    char-LM at full width on ``CharLMData`` at N=256, DSGD-AAU
+    ``sparse_scan`` on the main path's stream, 512 events; counters zeroed
+    just before each run and read just after; events/s after set-up, the
+    device's busy share of a profiled steady window, the loss falling and
+    DSGD-AAU's staleness bound 2N−4 held;
+18. card vs CPU: the LM example's tiny preset at N=8, 16 events, in ``scan``
+    and ``sparse_scan``: worker state within 1e-4, counters exactly;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
+
+Phase 2 also holds the dense LM paths' shapes: ``masked_gossip`` at N=8,
+``sparse_gossip`` and ``scatter_rows`` at A=8 of N=8, each at the 100m
+preset's widest leaf (D = 21,233,664), and ``swa_attention`` at qwen3-8b's
+prefill (B=4, T=4096, H=32, KV=8, dh=128, no window).
 """
 from __future__ import annotations
 
@@ -107,6 +129,15 @@ SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
 SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
 SWA_MAIN = (4, 4096, 10, 1, 256, 2048)     # B, T, H, KV, dh, window
 SERVE_PADDED = (2795, 3561)                # phase 6's padded prompt lengths
+DENSE_ARCH = "qwen3-8b"                    # phase 16's model
+SWA_DENSE = (4, 4096, 32, 8, 128, 4096)   # its prefill: window = T (none)
+LM_N, LM_LEAF_D = 8, 12 * 768 * 2304       # the 100m preset's widest leaf
+LM_PRESET, LM_EVENTS, LM_SEQ, LM_BATCH = "100m", 60, 64, 8
+# the 100m preset's step size: at the LM example's 0.3 its loss swings between
+# 9.4 and 12.8 from one eval to the next and two runs whose states differ
+# by 5e-6 part by O(1) within 10 events; at 0.03 it falls steadily
+LM_ETA0 = 0.03
+CHAR_N, CHAR_EVENTS, CHAR_POOL = 256, 512, 4   # CharLMData draws ~6 ms each
 MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
@@ -528,8 +559,11 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
         (2 * q.numel() + 2 * k.numel()) * s,
         4.0 * B * H * band_pairs(T, window) * dh, dname)
     if timed:
+        # the library call: SDPA with the band as its mask, or, with no
+        # window (window >= T), SDPA's own causal mask
         pos = torch.arange(T, device=device)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        mask = dict(is_causal=True) if window >= T else dict(attn_mask=band)
         q4 = q.reshape(B, H, T, dh)
         k4 = k.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
         v4 = v.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh).reshape(B, H, T, dh)
@@ -538,8 +572,108 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
                                                n_groups=g), 20,
             lambda: swa_ops.swa_attention_plain(q, k, v, window=window,
                                                 n_groups=g), 2,
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)))
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, **mask)))
     return row
+
+
+def check_lm_kernels(device) -> list:
+    """The dense LM paths' shapes: ``masked_gossip`` at N=8,
+    ``sparse_gossip`` and ``scatter_rows`` at A=8 lanes of N=8 workers
+    (all valid, and with padded lanes), each at the 100m preset's widest
+    leaf in float32, timed; ``swa_attention`` at qwen3-8b's prefill, timed
+    in bfloat16 against SDPA with the causal mask, held in float32 too."""
+    import torch
+    from repro_torch.kernels.gossip_mix import ops as gossip_ops
+    from repro_torch.kernels.sparse_gossip import ops as sparse_ops
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    gen = torch.Generator().manual_seed(6)
+    dgen = torch.Generator(device=device).manual_seed(6)
+    N, D, s = LM_N, LM_LEAF_D, 4
+    rows = []
+
+    def stochastic(n):
+        P = torch.rand(n, n, generator=gen) + torch.eye(n)
+        return (P / P.sum(1, keepdim=True)).to(device)
+
+    W = torch.randn(N, D, generator=dgen, device=device) * 0.1
+    G = torch.randn(N, D, generator=dgen, device=device) * 0.5
+    P = stochastic(N)
+    mask = (torch.rand(N, generator=gen) < 0.5).float().to(device) * 0.3
+    Q = (mask[:, None] * P).contiguous()
+    err = close(gossip_ops.masked_gossip_cuda(W, G, P, Q),
+                gossip_ops.masked_gossip_plain(W, G, P, Q), "float32")
+    b, by = bound_ms(3 * N * D * s + 2 * N * N * s, 4.0 * N * N * D,
+                     "float32", PRODUCT_FLOPS)
+    rows.append(dict(
+        kernel="masked_gossip", dtype="float32", N=N, A=None, D=D,
+        max_abs_err=err, bound_ms=b, bound_by=by, lm=True,
+        **timings(lambda: gossip_ops.masked_gossip_cuda(W, G, P, Q), REPS,
+                  lambda: gossip_ops.masked_gossip_plain(W, G, P, Q), 20,
+                  lambda: P.T @ W - Q.T @ G, launches=2)))
+    del G
+    for kind in ("full", "pads"):
+        w = torch.randperm(N, generator=gen).to(torch.int32)
+        if kind == "pads":
+            w[torch.randperm(N, generator=gen)[:3]] = -1
+        w = w.to(device)
+        valid = w >= 0
+        vf = valid.float()
+        Ps = (stochastic(N) * vf[:, None] * vf[None, :]).contiguous()
+        Qs = ((mask * vf)[:, None] * Ps).contiguous()
+        gidx = torch.where(valid, w, 0).to(torch.int32).contiguous()
+        Ga = torch.randn(N, D, generator=dgen, device=device) * 0.5
+        out = sparse_ops.sparse_gossip_cuda(W, Ga, Ps, Qs, gidx)
+        err = close(out, sparse_ops.sparse_gossip_plain(W, Ga, Ps, Qs, gidx),
+                    "float32")
+        Xk, Xp = W.clone(), W.clone()
+        sparse_ops.scatter_rows_cuda(Xk, out, w)
+        sparse_ops.scatter_rows_plain(Xp, out, w)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(Xk, Xp)), "scatter_rows: not an exact copy")
+        n_valid = int(valid.sum())
+        pairs = int((Ps != 0).sum())
+        row = dict(kernel="sparse_gossip", dtype="float32", N=N, A=N, D=D,
+                   lanes=kind, valid=n_valid, max_abs_err=err, lm=True,
+                   kernels=sparse_ops.sparse_gossip_kernels(N))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            3 * n_valid * D * s + 2 * N * N * s + 4 * N, 4.0 * pairs * D,
+            "float32", PRODUCT_FLOPS)
+        row_s = dict(kernel="scatter_rows", dtype="float32", N=N, A=N, D=D,
+                     lanes=kind, max_abs_err=0.0, lm=True)
+        row_s["bound_ms"], row_s["bound_by"] = bound_ms(
+            2 * n_valid * D * s + 4 * N, 0.0, "float32")
+        if kind == "full":
+            wv, gv = w.long(), out
+            row.update(timings(
+                lambda: sparse_ops.sparse_gossip_cuda(W, Ga, Ps, Qs, gidx), REPS,
+                lambda: sparse_ops.sparse_gossip_plain(W, Ga, Ps, Qs, gidx), 20,
+                lambda: Ps.T @ W.index_select(0, gidx.long()) - Qs.T @ Ga,
+                launches=row["kernels"]))
+            row_s.update(timings(
+                lambda: sparse_ops.scatter_rows_cuda(Xk, out, w), REPS,
+                lambda: sparse_ops.scatter_rows_plain(Xp, out, w), 20,
+                lambda: Xp.index_copy_(0, wv, gv)))
+        rows += [row, row_s]
+        del Ga, out, Xk, Xp
+    del W
+    torch.cuda.empty_cache()
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        row = _swa_case(swa_ops, gen, device, dname, dt, *SWA_DENSE,
+                        timed=dname == "bfloat16")
+        row["lm"] = True
+        rows.append(row)
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"[2] {r['kernel']} {r['dtype']} at the dense LM's shape "
+              f"{ {k: r[k] for k in ('N', 'A', 'D', 'B', 'T', 'H', 'KV', 'dh', 'lanes') if k in r} }: "
+              f"max abs err {r['max_abs_err']:.3e}" + (
+                  f"; device {r['device_ms']:.4f} ms, call {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library device "
+                  f"{r['library_device_ms']:.4f} / call {r['library_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  if "ms" in r else ""))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -681,14 +815,17 @@ def serve_requests(vocab: int):
     return [[reqs[i] for i in order[w::n_waves]] for w in range(n_waves)]
 
 
-def serve_full_width(device, build_s: float) -> dict:
-    """Phase 6: RecurrentGemma-2B at full width behind BatchedServer."""
+def serve_full_width(device, build_s: float, arch: str = ARCH,
+                     tag: str = "6") -> dict:
+    """Phase 6 (RecurrentGemma-2B) or 16 (qwen3-8b): ``arch`` at full width
+    behind BatchedServer; each prefill launches ``linear_scan`` once per
+    recurrent layer and ``swa_attention`` once per attention layer."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models.transformer import decode_step, init_model, prefill
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -699,7 +836,7 @@ def serve_full_width(device, build_s: float) -> dict:
     server.run([Request(rid=-1, prompt=waves[0][0].prompt[:256], max_new=2)])
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    print(f"[6] {ARCH}: {n_params:,} parameters in {cfg.param_dtype}; set-up "
+    print(f"[{tag}] {arch}: {n_params:,} parameters in {cfg.param_dtype}; set-up "
           f"{build_s + setup:.2f} s (build {build_s:.2f}, init and warm-up "
           f"{setup:.2f}); cache_len {cache_len}")
     torch.cuda.reset_peak_memory_stats(device)
@@ -711,16 +848,16 @@ def serve_full_width(device, build_s: float) -> dict:
         server.run(wave)
         counts = read_counts()
         st = server.stats[-1]
-        print(f"[6] wave {w}: batch {st.batch}, prompts "
+        print(f"[{tag}] wave {w}: batch {st.batch}, prompts "
               f"{[len(r.prompt) for r in wave]} padded to {st.padded_len}")
-        print(f"[6] wave {w}: time to first token {st.first_token_s:.4f} s")
-        print(f"[6] wave {w}: prefill {st.prompt_tokens / st.first_token_s:.1f} "
+        print(f"[{tag}] wave {w}: time to first token {st.first_token_s:.4f} s")
+        print(f"[{tag}] wave {w}: prefill {st.prompt_tokens / st.first_token_s:.1f} "
               f"prompt tok/s ({st.batch * st.padded_len / st.first_token_s:.1f} "
               f"with padding)")
-        print(f"[6] wave {w}: decode {st.batch * st.decode_steps / st.decode_s:.1f} "
+        print(f"[{tag}] wave {w}: decode {st.batch * st.decode_steps / st.decode_s:.1f} "
               f"tok/s ({st.decode_steps} steps in {st.decode_s:.4f} s)")
-        print(f"[6] wave {w}: launches {counts}")
-        require(st.padded_len > cfg.attn_window,
+        print(f"[{tag}] wave {w}: launches {counts}")
+        require(cfg.attn_window is None or st.padded_len > cfg.attn_window,
                 f"wave {w} is not longer than the window")
         require(counts["linear_scan"] == n_rec and counts["swa_attention"] == n_attn,
                 f"wave {w} launched {counts}, not {n_rec} linear_scan and "
@@ -730,8 +867,8 @@ def serve_full_width(device, build_s: float) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     reqs = [r for w in waves for r in w]
     n_out = sum(len(r.out) for r in reqs)
-    print(f"[6] {n_out} tokens for {len(reqs)} requests")
-    print(f"[6] max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"[{tag}] {n_out} tokens for {len(reqs)} requests")
+    print(f"[{tag}] max_memory_allocated {peak / 2**30:.2f} GiB")
     require(n_out == SERVE_REQUESTS * SERVE_NEW and all(
         len(r.out) == SERVE_NEW and r.done for r in reqs), "tokens missing")
     # the first wave again through the model's entry points: finite logits
@@ -751,6 +888,7 @@ def serve_full_width(device, build_s: float) -> dict:
             "prefill/decode_step disagree with the server's tokens")
     ttft = [s.first_token_s for s in server.stats[1:]]
     return dict(launches=launches, peak_bytes=peak, ttft=ttft,
+                n_params=n_params,
                 prefill_tok_s=sum(s.prompt_tokens for s in server.stats[1:]) / sum(ttft),
                 decode_tok_s=sum(s.batch * s.decode_steps for s in server.stats[1:])
                 / sum(s.decode_s for s in server.stats[1:]))
@@ -1169,6 +1307,154 @@ def observing_cost(device, n: int = N_MAIN, cells=OVERHEAD_CELLS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: decentralized LM training
+# ---------------------------------------------------------------------------
+
+def steady_window(trainer, events: int, device) -> dict:
+    """A profiled run of ``events`` more events after the timed one: the
+    device's busy ms and idle share of the window and its top device
+    operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.profiling import window_summary
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(max_events=events, eval_every=events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return window_summary(prof, wall, 4)
+
+
+def train_lm(tag: str, what: str, trainer, events: int, eval_every: int,
+             device, window_events: int, kernels) -> dict:
+    """Set up and run ``trainer`` once with the counters zeroed just before
+    (``drive``); the history finite and falling, each of ``kernels``
+    launched, DSGD-AAU's staleness bound 2N−4 held; then a profiled steady
+    window.  Returns the figures and W as the run left it (on the host)."""
+    res, setup, wall, counts = drive(trainer, events, eval_every)
+    state = {k: w.to("cpu", copy=True) for k, w in trainer.W.items()}
+    check_history(res, what)
+    eps = res.total_events / wall
+    sb = res.telemetry["staleness_bound"]
+    win = steady_window(trainer, window_events, device)
+    print(f"[{tag}] {what}: mode {trainer.mode}, {len(trainer.W)} leaves, "
+          f"{res.total_events} events in {wall:.3f} s = {eps:.2f} events/s "
+          f"after set-up ({setup:.2f} s); launches {counts}; loss "
+          f"{res.history[0].loss:.4f} -> {res.history[-1].loss:.4f}; "
+          f"staleness max {sb['observed_max']} <= 2N-4 = {sb['bound']}: "
+          f"{sb['ok']}; comm {res.total_comm_copies} copies")
+    print(f"[{tag}] {what}: steady window of {window_events} events "
+          f"{win['wall_ms']:.1f} ms, device busy {win['device_busy_ms']:.1f} "
+          f"ms, idle {100 * win['device_idle_share']:.1f} %; top device "
+          f"{[(k, c, round(ms, 2)) for k, c, ms in win['top_device_ms']]}")
+    require(all(counts[k] > 0 for k in kernels),
+            f"{what} missed a kernel of its path: {counts}")
+    require(res.history[-1].loss < res.history[0].loss,
+            f"the loss did not fall on {what}")
+    require(sb["ok"] and sb["bound"] == 2 * trainer.n - 4,
+            f"{what}: staleness bound {sb}")
+    return dict(eps=eps, setup=setup, launches=counts,
+                idle=win["device_idle_share"], busy_ms=win["device_busy_ms"],
+                wall_ms=win["wall_ms"], loss=(res.history[0].loss,
+                                              res.history[-1].loss)), state
+
+
+def lm_training(device) -> dict:
+    """Phase 17: the LM example's 100m preset at N=8 in the dense scan and in
+    the active-set path, then the paper's char-LM at N=256."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.runner import DecentralizedTrainer
+    from repro_torch.data import CharLMData
+    from repro_torch.examples import decentralized_lm as dlm
+    from repro_torch.models import flat_params, init_model, lm_loss, param_count
+    from repro_torch.xp import build_trainer
+
+    out = {}
+    cfg = dlm.preset_config(LM_PRESET)
+    print(f"[17] {cfg.name}: {param_count(cfg):,} parameters, float32, "
+          f"eta0 {LM_ETA0}")
+    states = {}
+    for label, kw, kernels in (
+            ("auto", dict(mode="auto"), ("masked_gossip",)),
+            ("sparse_scan", dict(mode="sparse_scan", events_per_step=1),
+             ("sparse_gossip", "scatter_rows"))):
+        t0 = time.perf_counter()
+        tr = dlm.build_trainer(cfg, LM_N, LM_SEQ, LM_BATCH, device=device,
+                               eta0=LM_ETA0, telemetry=True, **kw)
+        print(f"[17] {cfg.name} N={LM_N} {label}: trainer built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        res, states[label] = train_lm(
+            "17", f"{cfg.name} N={LM_N} dsgd_aau {label}", tr, LM_EVENTS,
+            LM_EVENTS // 6, device, 10, kernels)
+        out[label] = res
+        require(tr.mode == ("scan" if label == "auto" else label),
+                f"{label} took mode {tr.mode}")
+        del tr
+        torch.cuda.empty_cache()
+    # both runs replay one stream, one event a row: eq. (5) by two routes
+    # (masked_gossip's 3xTF32 sums against sparse_gossip's CUDA-core ones)
+    diff = max(float((states["auto"][k] - states["sparse_scan"][k]).abs().max())
+               for k in states["auto"])
+    print(f"[17] {cfg.name}: max |W| of scan against sparse_scan after "
+          f"{LM_EVENTS} events {diff:.3e}")
+    require(diff <= 1e-4, f"scan and sparse_scan disagree by {diff}")
+    del states
+
+    # the paper's char-LM on the main path's event stream (N=256)
+    cfg = get_config("paper-char-lm")
+    data = CharLMData(n_workers=CHAR_N, vocab=cfg.vocab_size, seq_len=64,
+                      seed=0)
+    sched = build_trainer(paper_spec(), "dsgd_aau", CHAR_N, 0,
+                          device="cpu").scheduler
+    t0 = time.perf_counter()
+    tr = DecentralizedTrainer(
+        sched, lambda p, b: lm_loss(p, cfg, b),
+        lambda gen: flat_params(init_model(cfg, gen, device)),
+        lambda w, s: data.batch(w, s, batch_size=8), data.eval_batch(16),
+        eta0=0.5, eta_decay=0.999, mode="sparse_scan", batch_pool=CHAR_POOL,
+        device=device, telemetry=True)
+    print(f"[17] {cfg.name}: {param_count(cfg):,} parameters, float32; "
+          f"trainer built in {time.perf_counter() - t0:.2f} s; ladder "
+          f"{sched.active_buckets()}")
+    out["char_lm"], _ = train_lm(
+        "17", f"{cfg.name} N={CHAR_N} dsgd_aau sparse_scan", tr, CHAR_EVENTS,
+        CHAR_EVENTS // 4, device, 64, ("sparse_gossip", "scatter_rows"))
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_card_vs_cpu(device, events: int = 16) -> None:
+    """Phase 18: the LM example's tiny preset at N=8 on the card and on the CPU
+    (both draw W0 on the host from seed 0), in the dense scan and the
+    active-set path."""
+    import torch
+    from repro_torch.examples import decentralized_lm as dlm
+
+    cfg = dlm.preset_config("tiny")
+    for kw in (dict(mode="scan"), dict(mode="sparse_scan", events_per_step=1)):
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            tr = dlm.build_trainer(cfg, LM_N, LM_SEQ, LM_BATCH, device=dev, **kw)
+            runs.append((tr, tr.run(max_events=events, eval_every=8)))
+        (tg, rg), (tc, rc) = runs
+        err = state_err(tg, tc)
+        loss_err = max(abs(p.loss - q.loss) for p, q in zip(rg.history, rc.history))
+        print(f"[18] {cfg.name} N={LM_N} {kw['mode']}, {events} events, card vs "
+              f"CPU: max |W,S,y| err {err:.3e}, max loss err {loss_err:.3e}; "
+              f"total_time {rg.total_time} / {rc.total_time}, comm "
+              f"{rg.total_comm_copies} / {rc.total_comm_copies}")
+        require(err <= 1e-4 and loss_err <= 1e-4,
+                f"tiny LM {kw['mode']}: card and CPU disagree by {err}, {loss_err}")
+        require(same_counters(rg, rc), f"tiny LM {kw['mode']}: counters differ")
+        require(bool(torch.equal(tg._ptr.cpu(), tc._ptr)),
+                f"tiny LM {kw['mode']}: ptr differs")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1200,13 +1486,14 @@ def main() -> int:
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
     rows = (check_kernels(device) + check_mix_kernels(device)
-            + check_sequence_kernels(device))
+            + check_sequence_kernels(device) + check_lm_kernels(device))
     _FLUSH.clear()   # else its buffer counts in phase 6's peak memory
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
         if "ms" in r:
             print("    " + json.dumps(r))
+    main_rows = [r for r in rows if not r.get("lm")]
     for r in rows:
         if r["kernel"] == "gossip_mix" and "ms" in r:
             print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
@@ -1332,6 +1619,15 @@ def main() -> int:
     # -- 15. the cost of observing; the sanitizer ----------------------------
     observing = observing_cost(device)
 
+    # -- 16. dense serve path: qwen3-8b at full width ------------------------
+    served_dense = serve_full_width(device, build_s, DENSE_ARCH, tag="16")
+
+    # -- 17. decentralized LM training: the 100m preset, the char-LM ---------
+    trained = lm_training(device)
+
+    # -- 18. card vs CPU: the LM example's tiny preset ---------------------------
+    lm_card_vs_cpu(device)
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -1368,11 +1664,20 @@ def main() -> int:
                           dict(dtype="bfloat16", B=B, T=T, H=H, KV=KV, dh=dh,
                                window=window)),
     }
+    # launches on the dense LM paths: qwen3-8b's two serve waves (16), the
+    # 100m preset's two runs and the char-LM's run (17)
+    lm_paths = {"serve_qwen3_8b": served_dense["launches"],
+                "train_100m_scan": trained["auto"]["launches"],
+                "train_100m_sparse_scan": trained["sparse_scan"]["launches"],
+                "train_char_lm_n256": trained["char_lm"]["launches"]}
+    timed_keys = ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "library_device_ms", "max_abs_err")
     kernels = []
     for kname, (source, replaces, sel) in meta.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        at = [r for r in mine if "ms" in r
+        at = [r for r in main_rows if r["kernel"] == kname and "ms" in r
               and all(r.get(k) == v for k, v in sel.items())][0]
+        lm_at = [r for r in mine if r.get("lm") and "ms" in r]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -1387,6 +1692,12 @@ def main() -> int:
             "library_device_ms": at["library_device_ms"],
             "launches_xp": xp["launches"][kname],
             "shape": sel,
+            "launches_lm": {path: c.get(kname, 0) for path, c in lm_paths.items()},
+            "lm_shape": ({k: lm_at[0][k] for k in ("dtype", "N", "A", "D", "B",
+                                                   "T", "H", "KV", "dh", "window",
+                                                   "lanes") if k in lm_at[0]}
+                         if lm_at else None),
+            "lm": ({k: lm_at[0][k] for k in timed_keys} if lm_at else None),
         })
     cli_eps = ", ".join(f"{a} {r['eps']:.1f} ({r['steady_eps']:.1f} after "
                         f"set-up)" for a, r in xp["runs"].items())
@@ -1402,6 +1713,15 @@ def main() -> int:
           f"{served['peak_bytes'] / 2**30:.2f} GiB; CLI cell {cli_eps} "
           f"events/s; telemetry overhead {overheads}; "
           f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"[8] dense LM paths: serve {DENSE_ARCH} ({served_dense['n_params']:,} "
+          f"parameters): prefill {served_dense['prefill_tok_s']:.1f} prompt "
+          f"tok/s, time to first token "
+          f"{', '.join(f'{t:.4f}' for t in served_dense['ttft'])} s, decode "
+          f"{served_dense['decode_tok_s']:.1f} tok/s, peak "
+          f"{served_dense['peak_bytes'] / 2**30:.2f} GiB; train " + "; ".join(
+              f"{k} {v['eps']:.2f} events/s (device idle "
+              f"{100 * v['idle']:.1f} %, loss {v['loss'][0]:.4f} -> "
+              f"{v['loss'][1]:.4f})" for k, v in trained.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

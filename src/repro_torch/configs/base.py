@@ -21,7 +21,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # hybrid (the others are not ported)
+    family: str                       # hybrid | dense (the others are not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +30,7 @@ class ModelConfig:
     vocab_size: int
     d_head: int = 0                   # default d_model // n_heads
     # --- attention details ---
+    qk_norm: bool = False             # qwen3: per-head RMSNorm on q and k
     rope_theta: float = 10000.0
     attn_window: Optional[int] = None  # sliding-window attention (tokens)
     # --- hybrid (recurrentgemma) ---
@@ -41,7 +42,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    source: str = ""
+    source: str = ""                  # citation of paper / model card
+    notes: str = ""
 
     def __post_init__(self):
         if self.d_head == 0 and self.n_heads > 0:
@@ -56,6 +58,25 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head) of a dense
+        config, the reference's formula (``repro/configs/base.py``)."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count() covers the dense family; {self.name} is "
+                f"{self.family!r} (transformer.param_count counts any ported "
+                "model from its shapes)")
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        total = v * d + d                               # embed, final norm
+        if not self.tie_embeddings:
+            total += d * v                              # lm head
+        per_attn = (d * self.n_heads * self.d_head     # wq
+                    + 2 * d * self.n_kv_heads * self.d_head  # wk, wv
+                    + self.n_heads * self.d_head * d)   # wo
+        if self.qk_norm:
+            per_attn += 2 * self.d_head
+        return total + L * (per_attn + 3 * d * f + 2 * d)
 
     def _pattern_expanded(self) -> Tuple[str, ...]:
         if not self.block_pattern:

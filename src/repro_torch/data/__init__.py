@@ -1,3 +1,5 @@
-from repro_torch.data.synthetic import ClassificationData
+from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+from repro_torch.data.synthetic import CharLMData, ClassificationData
 
-__all__ = ["ClassificationData"]
+__all__ = ["CharLMData", "ClassificationData", "TokenStream",
+           "TokenStreamConfig"]

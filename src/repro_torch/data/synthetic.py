@@ -1,14 +1,20 @@
-"""Synthetic classification data with controllable non-iid-ness across workers.
+"""Synthetic datasets with controllable non-iid-ness across workers.
 
-A copy of the reference's ``ClassificationData`` (Gaussian-mixture classes
-with the paper's label-sharding partitioner, a Dirichlet partitioner, or
-iid), drawing the same samples from the same seeds.  Batches stay NumPy:
-the trainer moves them to its device.
+Copies of the reference's ``repro/data/synthetic.py``, drawing the same
+samples from the same seeds:
+
+  * ``ClassificationData`` — Gaussian-mixture classes with the paper's
+    label-sharding partitioner, a Dirichlet partitioner, or iid;
+  * ``CharLMData`` — Markov-chain character streams; each worker's chain has
+    a distinct transition temperature (heterogeneous local distributions),
+    standing in for per-speaker Shakespeare shards.
+
+Batches stay NumPy: the trainer moves them to its device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -73,3 +79,45 @@ class ClassificationData:
         """TV distance of worker label distributions from uniform (ς proxy)."""
         u = 1.0 / self.n_classes
         return float(np.mean(np.abs(self.class_probs - u).sum(1) / 2))
+
+
+@dataclasses.dataclass
+class CharLMData:
+    n_workers: int
+    vocab: int = 80
+    seq_len: int = 64
+    temperature_spread: float = 0.5     # worker-to-worker distribution shift
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        base = rng.normal(size=(self.vocab, self.vocab))
+        self._trans: List[np.ndarray] = []
+        for w in range(self.n_workers):
+            temp = 1.0 + self.temperature_spread * (w / max(1, self.n_workers - 1) - 0.5)
+            logits = base / temp + 0.1 * rng.normal(size=base.shape)
+            p = np.exp(logits - logits.max(1, keepdims=True))
+            self._trans.append(p / p.sum(1, keepdims=True))
+
+    def _sample_stream(self, trans, rng, length):
+        out = np.empty(length, dtype=np.int32)
+        s = rng.integers(0, self.vocab)
+        for t in range(length):
+            out[t] = s
+            s = rng.choice(self.vocab, p=trans[s])
+        return out
+
+    def batch(self, worker: int, step: int, batch_size: int = 16):
+        rng = np.random.default_rng((self.seed, worker, step))
+        toks = np.stack([
+            self._sample_stream(self._trans[worker], rng, self.seq_len)
+            for _ in range(batch_size)])
+        return {"tokens": toks}
+
+    def eval_batch(self, batch_size: int = 32):
+        rng = np.random.default_rng(self.seed + 999)
+        avg = np.mean(np.stack(self._trans), axis=0)
+        avg = avg / avg.sum(1, keepdims=True)
+        toks = np.stack([
+            self._sample_stream(avg, rng, self.seq_len) for _ in range(batch_size)])
+        return {"tokens": toks}

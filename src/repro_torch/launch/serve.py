@@ -5,10 +5,15 @@ admitted in slot-sized waves (static batching): each wave is left-padded
 with token 0 to its longest prompt, prefilled once, then decoded step by
 step; every request of a wave gets its own number of new tokens.  Each
 step fetches the wave's tokens to the host once.  ``--demo`` runs the
-reduced config.
+reduced config.  Any ported family serves: hybrid (``recurrentgemma-2b``)
+and dense (``qwen3-8b``, ``minicpm-2b``, ``mistral-nemo-12b``,
+``deepseek-67b``); prefill attention runs the ``swa_attention`` kernel
+(no window for the dense archs), decode reads the KV cache in plain
+PyTorch.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --demo --device cpu
-  python -m repro_torch.launch.serve --arch recurrentgemma-2b        # on the card
+  python -m repro_torch.launch.serve --arch qwen3-8b --demo --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-8b                 # on the card
 """
 from __future__ import annotations
 

@@ -2,8 +2,11 @@
 
 ``lm_params_from_numpy`` takes the reference's ``init_model`` pytree with
 its leaves fetched to the host as NumPy arrays (nested dicts; the hybrid
-family's layers a tuple, indexed ``layers.{i}``) and returns the port's
-model holding the same values, so both packages compute the same function.
+family's layers a tuple, indexed ``layers.{i}``; the dense family's layers
+one dict of layer-stacked leaves, ``layers.attn.wq`` of shape (L, d, H·dh))
+and returns the port's model holding the same values, so both packages
+compute the same function.  ``lm_flat_params_from_numpy`` returns the same
+weights as the flat dict one worker of a decentralized trainer holds.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models.transformer import LM, init_model
+from repro_torch.models.transformer import LM, flat_params, init_model
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -50,3 +53,12 @@ def lm_params_from_numpy(tree: Any, cfg: ModelConfig,
     model.load_state_dict({k: torch.from_numpy(np.array(
         flat[k], dtype=np.float32)).to(own[k].dtype) for k in own})
     return model
+
+
+def lm_flat_params_from_numpy(tree: Any, cfg: ModelConfig,
+                              device: DeviceLike = "cuda"
+                              ) -> Dict[str, torch.Tensor]:
+    """The pytree's weights as the flat ``{path: tensor}`` dict that
+    ``lm_loss`` takes and a trainer stacks per worker."""
+    return {k: p.detach()
+            for k, p in flat_params(lm_params_from_numpy(tree, cfg, device)).items()}

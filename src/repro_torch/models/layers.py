@@ -4,7 +4,9 @@ Conventions, as in the reference:
   * weights keep the reference's (in, out) layout and layers compute
     ``x @ w``, so a weight carries over from the JAX pytree untransposed;
     each weight is an ``nn.Module`` attribute named as the pytree key, so
-    ``state_dict`` keys are the pytree paths (``layers.2.attn.wq``);
+    ``state_dict`` keys are the pytree paths (``layers.2.attn.wq``); a
+    homogeneous stack keeps the reference's layer-stacked layout, every
+    leaf with a leading layer axis (``lead``);
   * activations (B, T, D); attention heads (B, T, H, dh);
   * ``x @ w`` accumulates in float32 and returns the operands' dtype, as
     the reference's ``matmul`` (bf16 cuBLAS products reduce in float32 and
@@ -12,14 +14,19 @@ Conventions, as in the reference:
   * ``init`` draws from an explicit ``torch.Generator``; with no generator
     the weights are left uninitialised for a load.
 
-Prefill attention goes through the ``swa_attention`` kernel wrapper on
-every branch (the reference's ``_plain_attention`` and
-``blockwise_attention`` compute the same causal, windowed function);
-single-token decode against the rolling cache is plain PyTorch, as in the
-reference.  The reference's ``_SHARD_HINT`` is a TPU mesh hook for XLA's
-sharding propagation and is not ported, nor are the options the hybrid
-model never uses: qk-norm (the port's config has no such field) and
-(B, T) positions.
+The layer functions read weights as attributes (``p.wq``, ``p.scale``), so
+they run on the modules or on any object that exposes the same names (the
+dense family's per-layer views of a flat parameter dict).
+
+Prefill attention goes through the ``swa_attention`` kernel wrapper (the
+reference's ``_plain_attention`` and ``blockwise_attention`` compute the
+same causal, windowed function).  A caller that differentiates through
+attention -- ``lm_loss``, as the reference's training forward, which never
+reaches its Pallas kernel -- asks for ``_plain_attention`` with
+``plain=True``.  Single-token decode against the rolling cache is plain
+PyTorch, as in the reference.  The reference's ``_SHARD_HINT`` is a TPU
+mesh hook for XLA's sharding propagation and is not ported, nor are (B, T)
+positions, which no ported family uses.
 """
 from __future__ import annotations
 
@@ -35,16 +42,18 @@ from repro_torch.kernels.swa_attention import swa_attention
 
 
 def weight(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
-           gen: Optional[torch.Generator], scale: Optional[float] = None
-           ) -> nn.Parameter:
-    """N(0, scale²) drawn in float32 from ``gen`` (scale 1/√fan_in by
-    default, as the reference's ``_dense_init``), cast to ``dtype``;
-    uninitialised when ``gen`` is None."""
+           gen: Optional[torch.Generator], scale: Optional[float] = None,
+           lead: Tuple[int, ...] = ()) -> nn.Parameter:
+    """``lead + shape`` of N(0, scale²) drawn in float32 from ``gen`` (scale
+    1/√fan_in of the per-layer ``shape`` by default, as the reference's
+    ``_dense_init``), cast to ``dtype``; uninitialised when ``gen`` is
+    None."""
+    full = tuple(lead) + tuple(shape)
     if gen is None:
-        w = torch.empty(shape, dtype=dtype, device=device)
+        w = torch.empty(full, dtype=dtype, device=device)
     else:
         scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
-        w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+        w = torch.randn(full, generator=gen, device=gen.device).mul_(scale)
         w = w.to(device=device, dtype=dtype)
     return nn.Parameter(w, requires_grad=False)
 
@@ -71,9 +80,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, dtype: torch.dtype, device: torch.device):
+    def __init__(self, d: int, dtype: torch.dtype, device: torch.device,
+                 lead: Tuple[int, ...] = ()):
         super().__init__()
-        self.scale = const((d,), 1.0, dtype, device)
+        self.scale = const(tuple(lead) + (d,), 1.0, dtype, device)
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -102,24 +112,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, optional sliding window)
+# Attention (GQA, optional qk-norm, optional sliding window)
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
     def __init__(self, cfg, gen: Optional[torch.Generator],
-                 device: torch.device):
+                 device: torch.device, lead: Tuple[int, ...] = ()):
         super().__init__()
         d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         dt = cfg.pdtype
-        self.wq = weight((d, H * dh), dt, device, gen)
-        self.wk = weight((d, KV * dh), dt, device, gen)
-        self.wv = weight((d, KV * dh), dt, device, gen)
-        self.wo = weight((H * dh, d), dt, device, gen)
+        self.wq = weight((d, H * dh), dt, device, gen, lead=lead)
+        self.wk = weight((d, KV * dh), dt, device, gen, lead=lead)
+        self.wv = weight((d, KV * dh), dt, device, gen, lead=lead)
+        self.wo = weight((H * dh, d), dt, device, gen, lead=lead)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(dh, dt, device, lead)
+            self.k_norm = RMSNorm(dh, dt, device, lead)
 
 
 def _plain_attention(q, k, v, positions_q, positions_k, window):
-    """Materialised-scores attention for decode, grouped (KV, G) so the
-    cache is read at its stored KV width.  q: (B, Tq, H, dh); k, v:
+    """Materialised-scores attention, grouped (KV, G) so that k and v are
+    read at their stored KV width: decode against the cache, and the
+    differentiable training forward.  q: (B, Tq, H, dh); k, v:
     (B, Tk, KV, dh); positions (Tq,) and (Tk,), -1 marks an empty slot."""
     B, Tq, H, dh = q.shape
     KV = k.shape[2]
@@ -175,13 +189,15 @@ def build_cache_from_kv(k, v, positions, size: int) -> KVCache:
 def apply_attention(p: Attention, cfg, x, positions, *,
                     cache: Optional[KVCache] = None,
                     window: Optional[int] = None,
-                    build_cache: Optional[int] = None):
+                    build_cache: Optional[int] = None,
+                    plain: bool = False):
     """Self-attention forward.
 
     Prefill: ``cache is None`` -- causal attention over the whole sequence
     through the ``swa_attention`` wrapper (exact for any run of consecutive
-    positions); with ``build_cache=size`` also returns a rolling KVCache of
-    the last ``size`` positions.
+    positions), or through ``_plain_attention`` with ``plain=True`` (the
+    differentiable training forward); with ``build_cache=size`` also
+    returns a rolling KVCache of the last ``size`` positions.
     Decode: ``cache`` given and T == 1 -- writes the token at slot
     ``positions[0] % size`` (in place) and attends over the cache.
     Returns (out, cache).
@@ -191,11 +207,17 @@ def apply_attention(p: Attention, cfg, x, positions, *,
     q = (x @ p.wq).reshape(B, T, H, dh)
     k = (x @ p.wk).reshape(B, T, KV, dh)
     v = (x @ p.wv).reshape(B, T, KV, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p.q_norm, q, cfg.norm_eps)
+        k = rmsnorm(p.k_norm, k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = swa_attention(q, k, v, window=window)
+        if plain:
+            out = _plain_attention(q, k, v, positions, positions, window)
+        else:
+            out = swa_attention(q, k, v, window=window)
         if build_cache is not None:
             cache = build_cache_from_kv(k, v, positions, build_cache)
     else:
@@ -217,11 +239,12 @@ def apply_attention(p: Attention, cfg, x, positions, *,
 
 class MLP(nn.Module):
     def __init__(self, d: int, f: int, dtype: torch.dtype,
-                 device: torch.device, gen: Optional[torch.Generator]):
+                 device: torch.device, gen: Optional[torch.Generator],
+                 lead: Tuple[int, ...] = ()):
         super().__init__()
-        self.w_gate = weight((d, f), dtype, device, gen)
-        self.w_up = weight((d, f), dtype, device, gen)
-        self.w_down = weight((f, d), dtype, device, gen)
+        self.w_gate = weight((d, f), dtype, device, gen, lead=lead)
+        self.w_up = weight((d, f), dtype, device, gen, lead=lead)
+        self.w_down = weight((f, d), dtype, device, gen, lead=lead)
 
 
 def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:

@@ -1,26 +1,42 @@
-"""Decoder model of the port (``repro/models/transformer.py``), hybrid family.
+"""Decoder models of the port (``repro/models/transformer.py``): the hybrid
+and dense families.
 
-RecurrentGemma's wiring, unrolled over the block pattern
-("rec", "rec", "attn"):
+    hybrid (RecurrentGemma), unrolled over the block pattern
+    ("rec", "rec", "attn"):
+      rec  : [RMSNorm → RG-LRU block → +] [RMSNorm → SwiGLU → +]
+      attn : [RMSNorm → local attention → +] [RMSNorm → SwiGLU → +]
+    dense (Qwen3, MiniCPM, Mistral-NeMo, DeepSeek, the paper's char-LM):
+      [RMSNorm → GQA attention (qk-norm where set) → +] [RMSNorm → SwiGLU → +] × L
 
-    rec  : [RMSNorm → RG-LRU block → +] [RMSNorm → SwiGLU → +]
-    attn : [RMSNorm → local attention → +] [RMSNorm → SwiGLU → +]
+The dense stack keeps the reference's layer-stacked layout: each of its
+leaves has a leading layer axis (``layers.attn.wq`` is (L, d, H·dh)), as
+the reference's ``init_model`` builds it under ``jax.vmap``, so the weights
+carry across one to one and a decentralized trainer gossips the same
+leaves the reference gossips.  Its layer runner reads layer ``i`` of every
+leaf through a view, from the module or from a flat ``dict[str, Tensor]``
+(``{"layers.attn.wq": ..., ...}``, the dict a trainer stacks per worker).
 
-Three entry points share one layer runner:
+Entry points share one layer runner:
   * ``forward``     — full-sequence logits (B, T, V)
+  * ``lm_loss``     — next-token cross-entropy (dense), optionally with the
+    unembedding and the softmax in sequence chunks (``logit_chunk``);
+    differentiable with ``torch.func``: its attention is
+    ``_plain_attention`` (``plain_attention=True``), as the reference's
+    training forward computes attention with jnp functions and never
+    reaches its Pallas kernel
   * ``prefill``     — full sequence; last-token logits (B, V) + decode state
   * ``decode_step`` — one token against the decode state
 
 Decode state is a tuple with one entry per layer: ``RGLRUState`` for a
 recurrent layer, a rolling ``KVCache`` for an attention layer.  The other
-families (dense, moe, ssm, audio, vlm) and ``lm_loss`` are not ported yet
-(ROADMAP A6); asking for them raises ``NotImplementedError``.  The weights
-do not require gradients: nothing here is differentiable through the
-kernels yet.
+families (moe, ssm, audio, vlm) are not ported yet (ROADMAP A4); asking
+for them raises ``NotImplementedError``.  The weights do not require
+gradients: training differentiates ``lm_loss`` with respect to a flat
+parameter dict (``torch.func.grad``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -32,11 +48,14 @@ from repro_torch.models import rglru as RG
 from repro_torch.models.layers import KVCache
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
+FAMILIES = ("hybrid", "dense")   # the families the port runs
+
+
+def _require_family(cfg: ModelConfig, families=FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            "runs the hybrid family only (ROADMAP A6)")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet here: "
+            f"this runs {', '.join(families)} (ROADMAP A4)")
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -61,6 +80,19 @@ class RecLayer(nn.Module):
         self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen)
 
 
+class DenseStack(nn.Module):
+    """The dense family's L identical blocks, layer-stacked: every leaf has
+    a leading layer axis (``ln1.scale`` (L, d), ``attn.wq`` (L, d, H·dh))."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        lead = (cfg.n_layers,)
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
+        self.attn = L.Attention(cfg, gen, device, lead)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen, lead)
+
+
 class Head(nn.Module):
     def __init__(self, cfg, gen, device):
         super().__init__()
@@ -70,17 +102,21 @@ class Head(nn.Module):
 
 class LM(nn.Module):
     """The model's weights; ``state_dict`` keys are the reference's pytree
-    paths (``embed.table``, ``layers.0.rec.w_in``, ``head.w``)."""
+    paths (``embed.table``, ``layers.0.rec.w_in`` or, dense,
+    ``layers.attn.wq``, ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        _require_hybrid(cfg)
+        _require_family(cfg)
         self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, cfg.pdtype,
                                  device, gen)
-        kinds = {"attn": AttnLayer, "rec": RecLayer}
-        self.layers = nn.ModuleList(kinds[pt](cfg, gen, device)
-                                    for pt in block_pattern(cfg))
+        if cfg.family == "dense":
+            self.layers = DenseStack(cfg, gen, device)
+        else:
+            kinds = {"attn": AttnLayer, "rec": RecLayer}
+            self.layers = nn.ModuleList(kinds[pt](cfg, gen, device)
+                                        for pt in block_pattern(cfg))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.pdtype, device)
         if not cfg.tie_embeddings:
             self.head = Head(cfg, gen, device)
@@ -94,16 +130,74 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator],
     return LM(cfg, resolve_device(device), gen)
 
 
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count from the model's shapes (built on the meta
+    device: nothing is allocated)."""
+    return sum(p.numel() for p in LM(cfg, torch.device("meta")).parameters())
+
+
+def flat_params(model: LM) -> Dict[str, torch.Tensor]:
+    """The model's weights as a flat dict keyed by pytree path (the same
+    tensors, not copies)."""
+    return dict(model.named_parameters())
+
+
+Params = Union[LM, Dict[str, torch.Tensor]]
+
+
+class _View:
+    """Attribute access to a flat parameter dict: ``v.attn.wq`` is the leaf
+    ``{prefix}attn.wq``.  The layer functions read weights through it as
+    they read a module's."""
+
+    __slots__ = ("_flat", "_prefix")
+
+    def __init__(self, flat: Dict[str, torch.Tensor], prefix: str = ""):
+        self._flat, self._prefix = flat, prefix
+
+    def __getattr__(self, name: str):
+        key = self._prefix + name
+        leaf = self._flat.get(key)
+        if leaf is not None:
+            return leaf
+        if not any(k.startswith(key + ".") for k in self._flat):
+            raise AttributeError(f"no parameter {key!r}")
+        return _View(self._flat, key + ".")
+
+
+def _dense_layers(flat: Dict[str, torch.Tensor], n_layers: int):
+    """One view per layer of the layer-stacked leaves.  Each leaf is split
+    once (``unbind``), so a gradient reaches it through one stack of its
+    layers' gradients, not one full-size add per layer as indexing would
+    give."""
+    per_leaf = {k[len("layers."):]: v.unbind(0) for k, v in flat.items()
+                if k.startswith("layers.")}
+    return [_View({k: t[i] for k, t in per_leaf.items()})
+            for i in range(n_layers)]
+
+
+def _weights(model: Params, cfg: ModelConfig):
+    """What the layer runner reads: the hybrid model's modules, or a view of
+    the dense model's flat parameters (from the module or a dict)."""
+    _require_family(cfg)
+    if cfg.family == "dense":
+        flat = model if isinstance(model, dict) else flat_params(model)
+        return _View(flat)
+    if isinstance(model, dict):
+        raise TypeError("the hybrid family runs on its LM module")
+    return model
+
+
 # ---------------------------------------------------------------------------
 # Layer runner
 # ---------------------------------------------------------------------------
 
 def _apply_attn_layer(p: AttnLayer, cfg, x, positions, state, window,
-                      build_cache=None):
+                      build_cache=None, plain_attention=False):
     h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
     attn_out, new_state = L.apply_attention(
         p.attn, cfg, h, positions, cache=state, window=window,
-        build_cache=build_cache)
+        build_cache=build_cache, plain=plain_attention)
     x = x + attn_out
     h = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     return x + L.apply_mlp(p.ffn, h), new_state
@@ -117,67 +211,119 @@ def _apply_rec_layer(p: RecLayer, cfg, x, state):
     return x + L.apply_mlp(p.ffn, h), new_state
 
 
-def _run_layers(model: LM, cfg: ModelConfig, x, positions, *, states=None,
-                build_cache: Optional[int] = None):
-    """Run all blocks.  Returns (x, new_states_or_None).
+def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
+                build_cache: Optional[int] = None,
+                plain_attention: bool = False):
+    """Run all blocks of ``m`` (from ``_weights``).  Returns (x,
+    new_states_or_None).
 
     states given       → decode (per-layer state in/out)
     build_cache = size → prefill: construct decode states
     neither            → plain forward
+    ``plain_attention`` computes full-sequence attention with
+    ``_plain_attention`` instead of the ``swa_attention`` kernel (the
+    differentiable training forward of ``lm_loss``).
     """
-    _require_hybrid(cfg)
     window = cfg.attn_window
     collect = (states is not None) or (build_cache is not None)
+    pattern = block_pattern(cfg)
+    if cfg.family == "dense":
+        layer_weights = _dense_layers(m._flat, cfg.n_layers)
+    else:
+        layer_weights = m.layers
     new_states = []
-    for i, (pt, lp) in enumerate(zip(block_pattern(cfg), model.layers)):
+    for i, (pt, lp) in enumerate(zip(pattern, layer_weights)):
         st = states[i] if states is not None else None
         if pt == "attn":
             bc = build_cache if states is None else None
             if bc is not None and window:
                 bc = min(bc, window)
-            x, st2 = _apply_attn_layer(lp, cfg, x, positions, st, window, bc)
+            x, st2 = _apply_attn_layer(lp, cfg, x, positions, st, window, bc,
+                                       plain_attention)
         else:
             x, st2 = _apply_rec_layer(lp, cfg, x, st)
         new_states.append(st2)
     return x, (tuple(new_states) if collect else None)
 
 
-def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(m, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits."""
     if cfg.tie_embeddings:
-        return L.unembed(model.embed, x)
-    return L.matmul_f32(x, model.head.w)
+        return L.unembed(m.embed, x)
+    return L.matmul_f32(x, m.head.w)
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, T) int.  Returns logits (B, T, V) in float32 (the
-    hybrid family has no auxiliary loss)."""
-    x = L.embed(model.embed, tokens).to(cfg.cdtype)
+def forward(model: Params, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, T) int.  Returns logits (B, T, V) in float32 (the ported
+    families have no auxiliary loss)."""
+    m = _weights(model, cfg)
+    x = L.embed(m.embed, tokens).to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, _ = _run_layers(model, cfg, x, positions)
-    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, x)
+    x, _ = _run_layers(m, cfg, x, positions)
+    x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
+    return _logits(m, cfg, x)
 
 
-def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
+def lm_loss(params: Params, cfg: ModelConfig, batch,
+            logit_chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy of a dense model (float32 scalar).
+
+    ``params`` is the ``LM`` or one worker's flat parameter dict; batch:
+    {"tokens": (B, T) int}.  Hidden state t predicts token t + 1.  With
+    ``logit_chunk`` the unembedding and the softmax run over sequence
+    chunks of that many positions, summed in the reference's order (full
+    chunks, then the remainder); the reference also rematerialises each
+    chunk in its backward pass, which autograd here does not, so a chunk's
+    logits stay alive for the backward.
+    """
+    _require_family(cfg, ("dense",))
+    if batch.get("prefix") is not None:
+        raise NotImplementedError("prefix embeddings (audio/vlm) are not ported")
+    m = _weights(params, cfg)
+    tokens = batch["tokens"]
+    x = L.embed(m.embed, tokens).to(cfg.cdtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, _ = _run_layers(m, cfg, x, positions, plain_attention=True)
+    x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
+    x = x[:, :-1]                    # shift: predict token t+1 from hidden t
+    targets = tokens[:, 1:].long()
+
+    def ce(xc, tc):
+        logp = torch.log_softmax(_logits(m, cfg, xc), dim=-1)
+        return -torch.take_along_dim(logp, tc[..., None], dim=-1)[..., 0].sum()
+
+    if logit_chunk and x.shape[1] > logit_chunk:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in range(0, x.shape[1], logit_chunk):
+            b = a + logit_chunk
+            total = total + ce(x[:, a:b], targets[:, a:b])
+    else:
+        total = ce(x, targets)
+    return total / (targets.shape[0] * targets.shape[1])
+
+
+def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int):
     """Full-sequence prefill.  Returns (last-token logits (B, V), decode
     state); only the last position reaches the head."""
-    x = L.embed(model.embed, tokens).to(cfg.cdtype)
+    m = _weights(model, cfg)
+    x = L.embed(m.embed, tokens).to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, states = _run_layers(model, cfg, x, positions, build_cache=cache_len)
-    x = L.rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
-    return _logits(model, cfg, x)[:, 0], states
+    x, states = _run_layers(m, cfg, x, positions, build_cache=cache_len)
+    x = L.rmsnorm(m.final_norm, x[:, -1:], cfg.norm_eps)
+    return _logits(m, cfg, x)[:, 0], states
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: DeviceLike = "cuda"):
     """Empty per-layer decode state sized for a KV history of ``cache_len``;
     the attention cache is ``min(window, cache_len)`` slots (rolling)."""
-    _require_hybrid(cfg)
+    _require_family(cfg)
     dev = resolve_device(device)
     window = cfg.attn_window
     attn_len = min(window, cache_len) if window else cache_len
@@ -189,15 +335,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
         for pt in block_pattern(cfg))
 
 
-def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor, state,
+def decode_step(model: Params, cfg: ModelConfig, token: torch.Tensor, state,
                 pos: int):
     """One decode step.  token: (B,); pos: the token's absolute position.
 
     Returns (logits (B, V) float32, new_state); the attention layers'
     caches are updated in place.
     """
-    x = L.embed(model.embed, token[:, None]).to(cfg.cdtype)
+    m = _weights(model, cfg)
+    x = L.embed(m.embed, token[:, None]).to(cfg.cdtype)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    x, new_state = _run_layers(model, cfg, x, positions, states=state)
-    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, x)[:, 0], new_state
+    x, new_state = _run_layers(m, cfg, x, positions, states=state)
+    x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
+    return _logits(m, cfg, x)[:, 0], new_state

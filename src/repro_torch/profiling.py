@@ -93,6 +93,7 @@ def host_us(fn, reps: int) -> float:
 
 FLUSH_BYTES = 256 * 2**20   # five times the H100's 50 MB L2
 TRIES = 5                   # profiled windows before device_ms gives up
+LEAD = 2                    # flushes that open a window (see device_ms)
 
 
 def l2_flush(device):
@@ -105,11 +106,15 @@ def l2_flush(device):
     return lambda: buf.sum(1)
 
 
-def _profiled(calls, reps: int) -> list:
+def _profiled(calls, reps: int, lead=()) -> list:
+    """The device events of ``reps`` rounds of ``calls``, after one call of
+    each of ``lead``, in one profiled window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for call in lead:
+            call()
         for _ in range(reps):
             for call in calls:
                 call()
@@ -118,21 +123,23 @@ def _profiled(calls, reps: int) -> list:
 
 
 def whole_window(names, reps: int, launches: int | None = None,
-                 flush_counts: Counter | None = None) -> bool:
+                 flush_counts: Counter | None = None, lead: int = 0) -> bool:
     """Whether the device events named ``names``, recorded over ``reps``
-    calls (each after one flush that alone launches ``flush_counts``), hold
-    every event of the timed calls: each name other than the flush's a
-    whole number of times per call, ``launches`` of them per call in all
-    where given, and the flush's names no more often than the flushes
-    launch them -- more means the timed call launches one of them too.
-    A flush event may be missing: its time is not counted, and the
-    profiler has dropped the first event of a window on the H100."""
+    calls (each after one flush that alone launches ``flush_counts``, the
+    window opened by ``lead`` more flushes), hold every event of the timed
+    calls: each name other than the flush's a whole number of times per
+    call, ``launches`` of them per call in all where given, and the
+    flush's names no more often than the flushes launch them -- more means
+    the timed call launches one of them too.  A flush event may be
+    missing: its time is not counted, and the profiler has dropped the
+    first events of a window on the H100."""
     flush_counts = flush_counts or Counter()
     counts = Counter(names)
     mine = {k: c for k, c in counts.items() if k not in flush_counts}
     n = sum(mine.values())
     return (n > 0 and all(c % reps == 0 for c in mine.values())
-            and all(counts[k] <= c * reps for k, c in flush_counts.items())
+            and all(counts[k] <= c * (reps + lead)
+                    for k, c in flush_counts.items())
             and (launches is None or n == launches * reps))
 
 
@@ -169,16 +176,19 @@ def device_ms(fn, reps: int, launches: int | None = None,
     The window is held to its count of events (:func:`whole_window`).  The
     profiler has handed back windows with device events missing (on the
     H100, windows of a few ms of microsecond kernels, all their events or
-    the first), so a window that fails the count is profiled again, up
-    to ``TRIES`` times in all; then this raises."""
+    the first one or two), so with ``flush`` the window opens with
+    ``LEAD`` flushes whose events may go missing unseen, and a window
+    that fails the count is profiled again, up to ``TRIES`` times in all;
+    then this raises."""
     per_flush = flush_counts(flush, reps) if flush is not None else Counter()
     _warm(fn)
     calls = [flush, fn] if flush is not None else [fn]
+    lead = (flush,) * LEAD if flush is not None else ()
     names = []
     for _ in range(TRIES):
-        events = _profiled(calls, reps)
+        events = _profiled(calls, reps, lead)
         names = [e.name for e in events]
-        if whole_window(names, reps, launches, per_flush):
+        if whole_window(names, reps, launches, per_flush, len(lead)):
             return busy_ms([e for e in events
                             if e.name not in per_flush]) / reps
     raise RuntimeError(

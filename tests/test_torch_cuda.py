@@ -8,8 +8,9 @@ Every test here needs a CUDA device and nvcc; without one each test skips
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (float32 atol 2e-5 / rtol 1e-4, bfloat16 2e-2; the scatter is an
 exact copy), a short trainer run on the card against the same run on the
-CPU from the same W0, and the reduced RecurrentGemma on the card against
-the same weights on the CPU (logits within 1e-4, identical greedy tokens).
+CPU from the same W0, and the reduced RecurrentGemma and a reduced dense
+LM on the card against the same weights on the CPU (logits within 1e-4,
+identical greedy tokens), the dense LM also trained on both.
 """
 import pytest
 import torch
@@ -21,6 +22,7 @@ from repro_torch.kernels.gossip_mix import ops as gossip_ops
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.launch import serve
+from repro_torch.examples import decentralized_lm
 from repro_torch.models import transformer as T
 from repro_torch.kernels.sparse_gossip import ops as sparse_ops
 from repro_torch.xp import ExperimentSpec, build_trainer, mlp2nn_init
@@ -60,6 +62,23 @@ def test_masked_gossip_kernel_matches_plain(cuda, n, d, dt):
     out2 = gossip_ops.masked_gossip_update(W, G, P, Q)
     assert gossip_ops.masked_gossip_cuda.launches == before + 2
     assert torch.equal(out, out2)
+
+
+# the 100m LM preset's widest leaf, layers.ffn.w_* of shape (12, 768, 2304)
+LM_LEAF_D = 12 * 768 * 2304
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_masked_gossip_at_the_lm_leaf(cuda, dt):
+    """N = 8 workers of the 100m preset's widest leaf (D = 21,233,664: the
+    64-bit offsets and a grid of D tiles past 65,536)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    W = torch.randn(8, LM_LEAF_D, generator=g, device=cuda).to(dt)
+    G = torch.randn(8, LM_LEAF_D, generator=g, device=cuda).to(dt)
+    P = torch.rand(8, 8, generator=g, device=cuda).to(dt)
+    Q = (torch.rand(8, 8, generator=g, device=cuda) * 0.1).to(dt)
+    _close(gossip_ops.masked_gossip_cuda(W, G, P, Q),
+           gossip_ops.masked_gossip_plain(W, G, P, Q), dt)
 
 
 def _offset(rows, cols, g, cuda, dt, offset=1):
@@ -225,6 +244,13 @@ def test_sparse_kernels_match_plain(cuda, a, d, dt):
     above), ragged A and D, -1 lanes anywhere."""
     g = torch.Generator().manual_seed(a + d)
     _check_sparse(*_sparse_operands(g, a, d, dt, cuda), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_sparse_kernels_at_the_lm_leaf(cuda, dt):
+    """A = 8 lanes of N = 8 workers at the 100m preset's widest leaf."""
+    g = torch.Generator().manual_seed(21)
+    _check_sparse(*_sparse_operands(g, 8, LM_LEAF_D, dt, cuda, n=8), dt)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -453,6 +479,8 @@ def test_linear_scan_kernel_matches_plain(cuda, B, Tn, W, kind, dt):
     # the serve waves' padded lengths, windows 1, 2048 and past T
     (1, 2795, 10, 1, 128, 1), (1, 2795, 10, 1, 256, 2048),
     (1, 3561, 10, 1, 128, 3562), (1, 3561, 10, 1, 256, 1),
+    # qwen3-8b's prefill: dh 128, GQA 32/8, no window (window = T)
+    (2, 1100, 32, 8, 128, 1100), (1, 4096, 32, 8, 128, 4096),
     # float32 keeps the CUDA-core kernel: dh = 64 at the float32 bound
     (1, 300, 4, 2, 64, 100)])
 def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
@@ -510,6 +538,76 @@ def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
         serve.BatchedServer(cfg, model, 4, 140).run(reqs)
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1]
+
+
+def test_reduced_dense_lm_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen3 (qk-norm, GQA) from the same weights: prefill and 6
+    decode steps within 1e-4, one swa_attention launch per layer, the
+    server's greedy tokens identical; lm_loss and its gradient (the
+    training forward, which launches no kernel) within 1e-4."""
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = T.init_model(cfg, None, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                             size=(3, 150)))
+    swas = swa_ops.swa_attention_cuda.launches
+    lg, st = T.prefill(card, cfg, toks.to(cuda), 160)
+    assert swa_ops.swa_attention_cuda.launches - swas == cfg.n_layers
+    lc, sc = T.prefill(cpu, cfg, toks, 160)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for i in range(6):
+        lg, st = T.decode_step(card, cfg, tok.to(cuda), st, 150 + i)
+        lc, sc = T.decode_step(cpu, cfg, tok, sc, 150 + i)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    outs = []
+    for model in (card, cpu):
+        reqs = [serve.Request(i, np.random.default_rng(i).integers(
+            1, cfg.vocab_size, size=n), 8) for i, n in enumerate((70, 130, 9))]
+        serve.BatchedServer(cfg, model, 2, 140).run(reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    swas = swa_ops.swa_attention_cuda.launches
+    grads = []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        batch = {"tokens": toks[:2, :64].to(dev)}
+        grads.append(torch.func.grad(lambda p: T.lm_loss(p, cfg, batch))(
+            T.flat_params(model)))
+    assert swa_ops.swa_attention_cuda.launches == swas
+    for k in grads[1]:
+        torch.testing.assert_close(grads[0][k].cpu(), grads[1][k],
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["scan", "sparse_scan"])
+def test_lm_trainer_on_the_card_matches_the_cpu(cuda, mode):
+    """The LM example's tiny preset at N = 8, 8 events, from one W0 (both
+    trainers draw it on the host from seed 0): worker state within 1e-4,
+    counters and copies exactly; the card's run launches its mode's gossip
+    kernels."""
+    cfg = decentralized_lm.preset_config("tiny")
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        tr = decentralized_lm.build_trainer(cfg, 8, 32, 4, device=dev,
+                                            mode=mode, events_per_step=1)
+        before = (gossip_ops.masked_gossip_cuda.launches,
+                  sparse_ops.sparse_gossip_cuda.launches)
+        runs[dev.type] = (tr, tr.run(max_events=8, eval_every=4))
+        after = (gossip_ops.masked_gossip_cuda.launches,
+                 sparse_ops.sparse_gossip_cuda.launches)
+        if dev.type == "cuda":
+            launched = [b - a for a, b in zip(before, after)]
+            assert launched[mode == "sparse_scan"] > 0
+    (tg, rg), (tc, rc) = runs["cuda"], runs["cpu"]
+    for k in tg.W:
+        torch.testing.assert_close(tg.W[k].cpu(), tc.W[k], atol=1e-4, rtol=1e-3)
+    assert torch.equal(tg._ptr.cpu(), tc._ptr)
+    for p, q in zip(rg.history, rc.history):
+        assert (p.k, p.time, p.comm_param_copies) == (q.k, q.time,
+                                                      q.comm_param_copies)
+        assert abs(p.loss - q.loss) <= 1e-4
 
 
 # -- observability on the card ------------------------------------------------

@@ -34,6 +34,11 @@ def test_every_module_imports_without_jax():
             "repro_torch.check.runtime", "repro_torch.xp.__main__",
             "repro_torch.xp.sweep", "repro_torch.xp.artifacts",
             "repro_torch.xp.presets"} <= set(mods)
+    assert {"repro_torch.examples.decentralized_lm", "repro_torch.data.pipeline",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.minicpm_2b",
+            "repro_torch.configs.mistral_nemo_12b",
+            "repro_torch.configs.deepseek_67b",
+            "repro_torch.configs.paper_models"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -66,14 +66,13 @@ class _Card:
         monkeypatch.setattr(profiling, "_warm", lambda fn: None)
         monkeypatch.setattr(profiling, "_profiled", self.profiled)
 
-    def profiled(self, calls, reps):
+    def profiled(self, calls, reps, lead=()):
         self.windows += 1
         events, t = [], 0
-        for _ in range(reps):
-            for call in calls:
-                for name, dur in call.events:
-                    events.append(_ev(name, t, t + dur))
-                    t += dur + 10
+        for call in list(lead) + [c for _ in range(reps) for c in calls]:
+            for name, dur in call.events:
+                events.append(_ev(name, t, t + dur))
+                t += dur + 10
         drop = self.drops.pop(0) if self.drops else 0
         return [] if drop == "all" else events[drop:]
 
@@ -113,6 +112,18 @@ def test_device_ms_takes_a_window_that_lost_a_flush_event(monkeypatch):
     fn = _call(("scatter", 2000))
     assert profiling.device_ms(fn, 3, launches=1, flush=flush) == \
         pytest.approx(2.0)
+    assert card.windows == 2
+
+
+def test_device_ms_takes_a_window_that_lost_its_first_two_events(monkeypatch):
+    """The first two events of a timed window gone (the flush's and the
+    timed call's first kernel, as the H100's profiler has returned them):
+    the window's two opening flushes absorb them."""
+    card = _Card(monkeypatch, [0, 2])
+    flush = _call(("reduce", 5000))
+    fn = _call(("cast", 500), ("gemm", 3000))
+    assert profiling.device_ms(fn, 3, launches=2, flush=flush) == \
+        pytest.approx(3.5)
     assert card.windows == 2
 
 
