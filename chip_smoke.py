@@ -82,16 +82,33 @@ non-zero, printing no result, when there is none or when any phase fails:
     DSGD-AAU's staleness bound 2N−4 held;
 18. card vs CPU: the LM example's tiny preset at N=8, 16 events, in ``scan``
     and ``sparse_scan``: worker state within 1e-4, counters exactly;
+19. the MoE serve path: grok-1-314b at its published widths in bfloat16
+    (d 6144, 48 heads / 8 KV, d_ff 32768, 8 experts top-2, vocab 131,072),
+    its depth cut from 64 to 4 layers so that one card holds it, random
+    weights from a seeded generator, behind ``BatchedServer`` with phase
+    6's traffic; counters zeroed before each wave and read after it
+    (``swa_attention`` once per layer per prefill, no other kernel);
+20. the same for arctic-480b (d 7168, 56 heads / 8 KV, 128 experts of
+    d_ff 4864 top-2, a dense residual MLP of 4864, vocab 32,000), its
+    depth cut from 35 to 2 layers;
+21. card vs CPU: reduced grok-1 and arctic (float32) from the same weights,
+    through ``BatchedServer`` and ``lm_loss`` (its router gradient too),
+    also with two dispatch groups and with a capacity factor that drops
+    tokens: logits within 1e-4, the same greedy tokens;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds the dense LM paths' shapes: ``masked_gossip`` at N=8,
 ``sparse_gossip`` and ``scatter_rows`` at A=8 of N=8, each at the 100m
 preset's widest leaf (D = 21,233,664), and ``swa_attention`` at qwen3-8b's
-prefill (B=4, T=4096, H=32, KV=8, dh=128, no window).
+prefill (B=4, T=4096, H=32, KV=8, dh=128, no window), and the MoE serve
+waves' (B=4, T 2795 and 3561, GQA 48/8 and 56/8, dh=128, no window).
+Each full-width model is freed before the next phase.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -138,6 +155,9 @@ LM_PRESET, LM_EVENTS, LM_SEQ, LM_BATCH = "100m", 60, 64, 8
 # by 5e-6 part by O(1) within 10 events; at 0.03 it falls steadily
 LM_ETA0 = 0.03
 CHAR_N, CHAR_EVENTS, CHAR_POOL = 256, 512, 4   # CharLMData draws ~6 ms each
+# phases 19-20: (arch, layers kept of the published depth, phase)
+MOE_SERVE = (("grok-1-314b", 4, "19"), ("arctic-480b", 2, "20"))
+SWA_GQA = ((48, 8), (56, 8))               # their heads / KV heads, dh 128
 MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
@@ -676,6 +696,36 @@ def check_lm_kernels(device) -> list:
     return rows
 
 
+def check_moe_kernels(device) -> list:
+    """``swa_attention`` at the MoE serve waves' prefill shapes: GQA 6
+    (grok-1, H=48 / KV=8) and 7 (arctic, H=56 / KV=8), dh 128, no window,
+    bf16, B=4 at both padded lengths; grok-1's first wave (T=3561) timed
+    against SDPA with its own causal mask."""
+    import torch
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    gen = torch.Generator().manual_seed(19)
+    rows = []
+    for H, KV in SWA_GQA:
+        for T in SERVE_PADDED:
+            row = _swa_case(swa_ops, gen, device, "bfloat16", torch.bfloat16,
+                            4, T, H, KV, 128, T,
+                            timed=(H, T) == (SWA_GQA[0][0], max(SERVE_PADDED)))
+            row["moe"] = True
+            rows.append(row)
+            torch.cuda.empty_cache()
+            print(f"[2] swa_attention bfloat16 at an MoE prefill (B=4, T={T}, "
+                  f"H={H}, KV={KV}, dh=128, no window): max abs err "
+                  f"{row['max_abs_err']:.3e}" + (
+                      f"; device {row['device_ms']:.4f} ms, call "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                      f"SDPA is_causal device {row['library_device_ms']:.4f} "
+                      f"/ call {row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                      if "ms" in row else ""))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the trainer
 # ---------------------------------------------------------------------------
@@ -816,16 +866,26 @@ def serve_requests(vocab: int):
 
 
 def serve_full_width(device, build_s: float, arch: str = ARCH,
-                     tag: str = "6") -> dict:
-    """Phase 6 (RecurrentGemma-2B) or 16 (qwen3-8b): ``arch`` at full width
-    behind BatchedServer; each prefill launches ``linear_scan`` once per
-    recurrent layer and ``swa_attention`` once per attention layer."""
+                     tag: str = "6", layers: int = None) -> dict:
+    """Phase 6 (RecurrentGemma-2B), 16 (qwen3-8b), 19 (grok-1-314b) or 20
+    (arctic-480b): ``arch`` at its published widths behind BatchedServer,
+    its depth cut to ``layers`` where given; each prefill launches
+    ``linear_scan`` once per recurrent layer, ``swa_attention`` once per
+    attention layer and no other kernel."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models.transformer import decode_step, init_model, prefill
 
     cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        print(f"[{tag}] {arch}: depth cut from {published} to {layers} layers "
+              f"(published widths kept: d {cfg.d_model}, {cfg.n_heads} heads / "
+              f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, {cfg.n_experts} experts "
+              f"top-{cfg.top_k}, dense residual {cfg.dense_residual_ff}, "
+              f"vocab {cfg.vocab_size})")
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -839,14 +899,16 @@ def serve_full_width(device, build_s: float, arch: str = ARCH,
     print(f"[{tag}] {arch}: {n_params:,} parameters in {cfg.param_dtype}; set-up "
           f"{build_s + setup:.2f} s (build {build_s:.2f}, init and warm-up "
           f"{setup:.2f}); cache_len {cache_len}")
-    torch.cuda.reset_peak_memory_stats(device)
     launches = {"linear_scan": 0, "swa_attention": 0}
     n_rec = sum(1 for pt in cfg._pattern_expanded() if pt == "rec")
     n_attn = cfg.n_layers - n_rec
+    peaks = []
     for w, wave in enumerate(waves):
+        torch.cuda.reset_peak_memory_stats(device)
         reset_counts()
         server.run(wave)
         counts = read_counts()
+        peaks.append(torch.cuda.max_memory_allocated(device))
         st = server.stats[-1]
         print(f"[{tag}] wave {w}: batch {st.batch}, prompts "
               f"{[len(r.prompt) for r in wave]} padded to {st.padded_len}")
@@ -857,14 +919,17 @@ def serve_full_width(device, build_s: float, arch: str = ARCH,
         print(f"[{tag}] wave {w}: decode {st.batch * st.decode_steps / st.decode_s:.1f} "
               f"tok/s ({st.decode_steps} steps in {st.decode_s:.4f} s)")
         print(f"[{tag}] wave {w}: launches {counts}")
+        print(f"[{tag}] wave {w}: max_memory_allocated {peaks[-1] / 2**30:.2f} GiB")
         require(cfg.attn_window is None or st.padded_len > cfg.attn_window,
                 f"wave {w} is not longer than the window")
-        require(counts["linear_scan"] == n_rec and counts["swa_attention"] == n_attn,
-                f"wave {w} launched {counts}, not {n_rec} linear_scan and "
-                f"{n_attn} swa_attention")
+        expected = dict.fromkeys(counts, 0)
+        expected.update(linear_scan=n_rec, swa_attention=n_attn)
+        require(counts == expected,
+                f"wave {w} launched {counts}, not {n_rec} linear_scan, "
+                f"{n_attn} swa_attention and no other kernel")
         for k in launches:
             launches[k] += counts[k]
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = max(peaks)
     reqs = [r for w in waves for r in w]
     n_out = sum(len(r.out) for r in reqs)
     print(f"[{tag}] {n_out} tokens for {len(reqs)} requests")
@@ -888,7 +953,8 @@ def serve_full_width(device, build_s: float, arch: str = ARCH,
             "prefill/decode_step disagree with the server's tokens")
     ttft = [s.first_token_s for s in server.stats[1:]]
     return dict(launches=launches, peak_bytes=peak, ttft=ttft,
-                n_params=n_params,
+                n_params=n_params, n_layers=cfg.n_layers,
+                published_layers=published, wave_peaks=peaks,
                 prefill_tok_s=sum(s.prompt_tokens for s in server.stats[1:]) / sum(ttft),
                 decode_tok_s=sum(s.batch * s.decode_steps for s in server.stats[1:])
                 / sum(s.decode_s for s in server.stats[1:]))
@@ -934,6 +1000,73 @@ def serve_card_vs_cpu(device) -> None:
           f"decode steps {err:.3e}; server tokens identical: {outs[0] == outs[1]}")
     require(err <= 1e-4, f"card and CPU logits disagree by {err}")
     require(outs[0] == outs[1], "card and CPU greedy tokens differ")
+
+
+def moe_card_vs_cpu(device) -> None:
+    """Phase 21: reduced grok-1 and arctic (float32) on the card and on the
+    CPU from the same weights -- as reduced (one dispatch group), grok-1
+    with two dispatch groups (every prefill's N = 4·T divides), and arctic
+    with a capacity factor of 0.25 (each expert holds a quarter of the
+    pairs routed to it on average, so most are dropped): prefill and 15
+    decode steps with logits within 1e-4 and the same greedy tokens, the
+    server's tokens identical, ``lm_loss`` and its router gradient within
+    1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import (decode_step, flat_params,
+                                                init_model, lm_loss, prefill)
+
+    cases = [(get_config(a).reduced(), over) for a, over in (
+        ("grok-1-314b", {}), ("grok-1-314b", dict(moe_groups=2)),
+        ("arctic-480b", {}), ("arctic-480b", dict(moe_capacity_factor=0.25)))]
+    for cfg, over in cases:
+        cfg = dataclasses.replace(cfg, **over)
+        cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card = init_model(cfg, None, device=device)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in rng.integers(40, 121, size=6)]
+        T = max(len(p) for p in prompts[:4])
+        toks = torch.zeros((4, T), dtype=torch.int64)
+        for j, p in enumerate(prompts[:4]):
+            toks[j, T - len(p):] = torch.from_numpy(p)
+        lg, sg = prefill(card, cfg, toks.to(device), T + 16)
+        lc, sc = prefill(cpu, cfg, toks, T + 16)
+        err = float((lg.cpu() - lc).abs().max())
+        for i in range(15):
+            tok = lc.argmax(-1)
+            require(torch.equal(lg.argmax(-1).cpu(), tok),
+                    f"{cfg.name} {over}: step {i}: tokens differ")
+            lg, sg = decode_step(card, cfg, tok.to(device), sg, T + i)
+            lc, sc = decode_step(cpu, cfg, tok, sc, T + i)
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+        outs = []
+        for model in (card, cpu):
+            reqs = [Request(rid=i, prompt=p, max_new=8)
+                    for i, p in enumerate(prompts)]
+            BatchedServer(cfg, model, 4, 136).run(reqs)
+            outs.append([r.out for r in reqs])
+        losses, grads = [], []
+        for model, dev in ((card, device), (cpu, torch.device("cpu"))):
+            batch = {"tokens": toks[:, :64].to(dev)}
+            flat = flat_params(model)
+            losses.append(float(lm_loss(flat, cfg, batch)))
+            grads.append(torch.func.grad(lambda r: lm_loss(
+                dict(flat, **{"layers.ffn.router": r}), cfg, batch))(
+                    flat["layers.ffn.router"]).cpu())
+        gerr = float((grads[0] - grads[1]).abs().max())
+        print(f"[21] {cfg.name} {over or '(as reduced)'} card vs CPU: prompts "
+              f"{[len(p) for p in prompts]}; max |logits| err over prefill "
+              f"and 15 decode steps {err:.3e}; server tokens identical: "
+              f"{outs[0] == outs[1]}; lm_loss {losses[0]:.6f} / "
+              f"{losses[1]:.6f}, router gradient err {gerr:.3e}")
+        require(err <= 1e-4, f"{cfg.name} {over}: logits disagree by {err}")
+        require(outs[0] == outs[1], f"{cfg.name} {over}: greedy tokens differ")
+        require(abs(losses[0] - losses[1]) <= 1e-4 and gerr <= 1e-4,
+                f"{cfg.name} {over}: lm_loss or its gradient disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1486,14 +1619,15 @@ def main() -> int:
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
     rows = (check_kernels(device) + check_mix_kernels(device)
-            + check_sequence_kernels(device) + check_lm_kernels(device))
+            + check_sequence_kernels(device) + check_lm_kernels(device)
+            + check_moe_kernels(device))
     _FLUSH.clear()   # else its buffer counts in phase 6's peak memory
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
         if "ms" in r:
             print("    " + json.dumps(r))
-    main_rows = [r for r in rows if not r.get("lm")]
+    main_rows = [r for r in rows if not (r.get("lm") or r.get("moe"))]
     for r in rows:
         if r["kernel"] == "gossip_mix" and "ms" in r:
             print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
@@ -1628,6 +1762,20 @@ def main() -> int:
     # -- 18. card vs CPU: the LM example's tiny preset ---------------------------
     lm_card_vs_cpu(device)
 
+    # -- 19-20. MoE serve path: grok-1-314b and arctic-480b, depth cut --------
+    served_moe = {}
+    for arch, layers, tag in MOE_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] resident before the model: "
+              f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+        served_moe[arch] = serve_full_width(device, build_s, arch, tag, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 21. card vs CPU: reduced grok-1 and arctic ----------------------------
+    moe_card_vs_cpu(device)
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -1670,6 +1818,8 @@ def main() -> int:
                 "train_100m_scan": trained["auto"]["launches"],
                 "train_100m_sparse_scan": trained["sparse_scan"]["launches"],
                 "train_char_lm_n256": trained["char_lm"]["launches"]}
+    moe_paths = {f"serve_{a.replace('-', '_')}": served_moe[a]["launches"]
+                 for a, _, _ in MOE_SERVE}
     timed_keys = ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
                   "bound_by", "library_ms", "library_device_ms", "max_abs_err")
     kernels = []
@@ -1678,6 +1828,7 @@ def main() -> int:
         at = [r for r in main_rows if r["kernel"] == kname and "ms" in r
               and all(r.get(k) == v for k, v in sel.items())][0]
         lm_at = [r for r in mine if r.get("lm") and "ms" in r]
+        moe_at = [r for r in mine if r.get("moe") and "ms" in r]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -1698,6 +1849,11 @@ def main() -> int:
                                                    "lanes") if k in lm_at[0]}
                          if lm_at else None),
             "lm": ({k: lm_at[0][k] for k in timed_keys} if lm_at else None),
+            "launches_moe": {path: c.get(kname, 0) for path, c in moe_paths.items()},
+            "moe_shape": ({k: moe_at[0][k] for k in ("dtype", "B", "T", "H", "KV",
+                                                     "dh", "window")}
+                          if moe_at else None),
+            "moe": ({k: moe_at[0][k] for k in timed_keys} if moe_at else None),
         })
     cli_eps = ", ".join(f"{a} {r['eps']:.1f} ({r['steady_eps']:.1f} after "
                         f"set-up)" for a, r in xp["runs"].items())
@@ -1722,6 +1878,14 @@ def main() -> int:
               f"{k} {v['eps']:.2f} events/s (device idle "
               f"{100 * v['idle']:.1f} %, loss {v['loss'][0]:.4f} -> "
               f"{v['loss'][1]:.4f})" for k, v in trained.items()))
+    for arch, layers, tag in MOE_SERVE:
+        m = served_moe[arch]
+        print(f"[8] MoE serve {arch} ({m['n_params']:,} parameters, "
+              f"{m['n_layers']} of {m['published_layers']} layers): prefill "
+              f"{m['prefill_tok_s']:.1f} prompt tok/s, time to first token "
+              f"{', '.join(f'{t:.4f}' for t in m['ttft'])} s, decode "
+              f"{m['decode_tok_s']:.1f} tok/s, peak per wave "
+              f"{', '.join(f'{b / 2**30:.2f}' for b in m['wave_peaks'])} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,10 @@
 
 The port of the reference's ``repro/configs/base.py``: ``reduced()`` and
 the registry, with torch dtypes.  :class:`ModelConfig` holds only the
-reference's fields that the ported families read (the hybrid family so
-far); each later family adds its own, so a config cannot ask for an option
+reference's fields that the ported families read (hybrid, dense and
+moe); each later family adds its own, so a config cannot ask for an option
 the port would silently leave out.  Each architecture is a module under
-``repro_torch/configs/`` that registers its config on import
-(``recurrentgemma-2b`` so far).
+``repro_torch/configs/`` that registers its config on import.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # hybrid | dense (the others are not ported)
+    family: str                       # hybrid | dense | moe (the others are not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,6 +28,12 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     d_head: int = 0                   # default d_model // n_heads
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    dense_residual_ff: int = 0        # arctic: dense MLP in parallel with MoE
+    moe_capacity_factor: float = 1.25  # Switch-style expert capacity
+    moe_groups: int = 1               # GShard-style dispatch groups
     # --- attention details ---
     qk_norm: bool = False             # qwen3: per-head RMSNorm on q and k
     rope_theta: float = 10000.0
@@ -61,11 +66,11 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head) of a dense
-        config, the reference's formula (``repro/configs/base.py``)."""
-        if self.family != "dense":
+        or MoE config, the reference's formula (``repro/configs/base.py``)."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"param_count() covers the dense family; {self.name} is "
-                f"{self.family!r} (transformer.param_count counts any ported "
+                f"param_count() covers the dense and moe families; {self.name} "
+                f"is {self.family!r} (transformer.param_count counts any ported "
                 "model from its shapes)")
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         total = v * d + d                               # embed, final norm
@@ -76,7 +81,21 @@ class ModelConfig:
                     + self.n_heads * self.d_head * d)   # wo
         if self.qk_norm:
             per_attn += 2 * self.d_head
-        return total + L * (per_attn + 3 * d * f + 2 * d)
+        if self.family == "moe":
+            per_ffn = self.n_experts * 3 * d * f + d * self.n_experts
+            if self.dense_residual_ff:
+                per_ffn += 3 * d * self.dense_residual_ff
+        else:
+            per_ffn = 3 * d * f
+        return total + L * (per_attn + per_ffn + 2 * d)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.d_ff
+        return (self.param_count()
+                - self.n_layers * (self.n_experts - self.top_k) * per_expert)
 
     def _pattern_expanded(self) -> Tuple[str, ...]:
         if not self.block_pattern:
@@ -103,6 +122,11 @@ class ModelConfig:
             d_head=d // heads if heads else 0,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            moe_groups=1,
+            dense_residual_ff=(min(self.dense_residual_ff, 256)
+                               if self.dense_residual_ff else 0),
             rnn_width=min(self.rnn_width, d) if self.rnn_width else 0,
             attn_window=min(self.attn_window, 64) if self.attn_window else None,
             param_dtype="float32",

@@ -1,9 +1,10 @@
 """Where the time of one serving wave goes, on the card.
 
-    python -m repro_torch.launch.profile_serve [--out FILE]
+    python -m repro_torch.launch.profile_serve [--arch A] [--layers L] [--out FILE]
 
-Initialises the full-width recurrentgemma-2b from a seeded generator and
-serves ``chip_smoke.py``'s first wave (4 prompts of 3561, 2344, 1479 and
+Initialises ``--arch`` (recurrentgemma-2b by default) at full width from a
+seeded generator, its depth cut to ``--layers`` where given (grok-1-314b
+at 4, arctic-480b at 2, as ``chip_smoke.py`` serves them), and serves ``chip_smoke.py``'s first wave (4 prompts of 3561, 2344, 1479 and
 658 tokens, left-padded to 3561; 32 greedy tokens each; a cache of 3593)
 through ``BatchedServer``: a short warm-up wave pays one-time costs, then
 the wave runs once under the host clock and once under ``torch.profiler``,
@@ -15,10 +16,10 @@ device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
-ARCH = "recurrentgemma-2b"
 PROMPTS = (3561, 2344, 1479, 658)   # chip_smoke.py's wave 0
 NEW = 32
 CACHE_LEN = 3561 + NEW
@@ -26,6 +27,9 @@ CACHE_LEN = 3561 + NEW
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers, widths kept")
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     args = ap.parse_args(argv)
 
@@ -40,7 +44,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     dev = torch.device("cuda", 0)
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -66,6 +72,7 @@ def main(argv=None) -> int:
         t_dec = time.perf_counter() - t0
     summary = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name,
+        "n_layers": cfg.n_layers,
         "prompts": list(PROMPTS), "new": NEW,
         "first_token_s": st.first_token_s, "decode_s": st.decode_s,
         "prefill": window_summary(p_pre, t_pre, 12),

@@ -5,15 +5,19 @@ admitted in slot-sized waves (static batching): each wave is left-padded
 with token 0 to its longest prompt, prefilled once, then decoded step by
 step; every request of a wave gets its own number of new tokens.  Each
 step fetches the wave's tokens to the host once.  ``--demo`` runs the
-reduced config.  Any ported family serves: hybrid (``recurrentgemma-2b``)
-and dense (``qwen3-8b``, ``minicpm-2b``, ``mistral-nemo-12b``,
-``deepseek-67b``); prefill attention runs the ``swa_attention`` kernel
-(no window for the dense archs), decode reads the KV cache in plain
-PyTorch.
+reduced config; ``--layers`` keeps the published widths and cuts the
+depth (a model whose weights exceed the card).  Any ported family serves:
+hybrid (``recurrentgemma-2b``), dense (``qwen3-8b``, ``minicpm-2b``,
+``mistral-nemo-12b``, ``deepseek-67b``) and moe (``grok-1-314b``,
+``arctic-480b``: capacity-routed experts, arctic's dense residual);
+prefill attention runs the ``swa_attention`` kernel (no window for the
+dense and moe archs), decode reads the KV cache in plain PyTorch.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --demo --device cpu
   python -m repro_torch.launch.serve --arch qwen3-8b --demo --device cpu
+  python -m repro_torch.launch.serve --arch grok-1-314b --demo --device cpu
   python -m repro_torch.launch.serve --arch qwen3-8b                 # on the card
+  python -m repro_torch.launch.serve --arch grok-1-314b --layers 4   # on the card
 """
 from __future__ import annotations
 
@@ -116,6 +120,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--demo", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers, widths kept")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -128,6 +134,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.demo:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = init_model(cfg, gen, device)
     cache_len = args.cache_len or 256

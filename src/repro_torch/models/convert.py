@@ -2,11 +2,15 @@
 
 ``lm_params_from_numpy`` takes the reference's ``init_model`` pytree with
 its leaves fetched to the host as NumPy arrays (nested dicts; the hybrid
-family's layers a tuple, indexed ``layers.{i}``; the dense family's layers
-one dict of layer-stacked leaves, ``layers.attn.wq`` of shape (L, d, H·dh))
-and returns the port's model holding the same values, so both packages
-compute the same function.  ``lm_flat_params_from_numpy`` returns the same
-weights as the flat dict one worker of a decentralized trainer holds.
+family's layers a tuple, indexed ``layers.{i}``; the dense and moe
+families' layers one dict of layer-stacked leaves, ``layers.attn.wq`` of
+shape (L, d, H·dh), ``layers.ffn.w_gate`` of an MoE (L, E, d, f), arctic's
+``layers.ffn.dense_residual.w_up``) and returns the port's model holding
+the same values, so both packages compute the same function.
+``lm_flat_params_from_numpy`` returns the same weights as the flat dict
+one worker of a decentralized trainer holds; ``load_numpy`` fills any of
+the port's modules (one ``models.moe.MoE``, say) from the matching
+subtree.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
@@ -31,17 +36,13 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree)
 
 
-def lm_params_from_numpy(tree: Any, cfg: ModelConfig,
-                         device: DeviceLike = "cuda") -> LM:
-    """The port's model on ``device`` with the pytree's weights.
-
-    Keys and shapes must match the port's exactly (a missing, extra or
-    mis-shaped leaf raises); values are cast to the config's param dtype.
-    """
+def load_numpy(module: nn.Module, tree: Any) -> nn.Module:
+    """``module`` with the pytree's weights loaded, cast to each
+    parameter's dtype.  Keys and shapes must match the module's exactly (a
+    missing, extra or mis-shaped leaf raises)."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
-    model = init_model(cfg, None, device)
-    own = model.state_dict()
+    own = module.state_dict()
     if set(flat) != set(own):
         raise KeyError(f"pytree and model disagree: only in the pytree "
                        f"{sorted(set(flat) - set(own))}, only in the model "
@@ -50,9 +51,16 @@ def lm_params_from_numpy(tree: Any, cfg: ModelConfig,
         if tuple(flat[k].shape) != tuple(t.shape):
             raise ValueError(f"{k}: pytree shape {flat[k].shape} != model "
                              f"shape {tuple(t.shape)}")
-    model.load_state_dict({k: torch.from_numpy(np.array(
+    module.load_state_dict({k: torch.from_numpy(np.array(
         flat[k], dtype=np.float32)).to(own[k].dtype) for k in own})
-    return model
+    return module
+
+
+def lm_params_from_numpy(tree: Any, cfg: ModelConfig,
+                         device: DeviceLike = "cuda") -> LM:
+    """The port's model on ``device`` with the pytree's weights
+    (``load_numpy``'s checks)."""
+    return load_numpy(init_model(cfg, None, device), tree)
 
 
 def lm_flat_params_from_numpy(tree: Any, cfg: ModelConfig,

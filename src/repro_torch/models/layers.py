@@ -43,18 +43,28 @@ from repro_torch.kernels.swa_attention import swa_attention
 
 def weight(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
            gen: Optional[torch.Generator], scale: Optional[float] = None,
-           lead: Tuple[int, ...] = ()) -> nn.Parameter:
+           lead: Tuple[int, ...] = (), sliced: bool = False) -> nn.Parameter:
     """``lead + shape`` of N(0, scale²) drawn in float32 from ``gen`` (scale
     1/√fan_in of the per-layer ``shape`` by default, as the reference's
     ``_dense_init``), cast to ``dtype``; uninitialised when ``gen`` is
-    None."""
+    None.  ``sliced`` draws one slice of ``shape[1:]`` at a time along the
+    leading axes (``lead`` and ``shape[0]``) straight into the ``dtype``
+    parameter, so no float32 copy of the whole leaf exists (an MoE
+    layer-stack's experts: arctic's (L, 128, 7168, 4864) would need 35.7 GB
+    of float32 per leaf at two layers)."""
     full = tuple(lead) + tuple(shape)
     if gen is None:
         w = torch.empty(full, dtype=dtype, device=device)
     else:
         scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
-        w = torch.randn(full, generator=gen, device=gen.device).mul_(scale)
-        w = w.to(device=device, dtype=dtype)
+        if sliced:
+            w = torch.empty(full, dtype=dtype, device=device)
+            for part in w.view(-1, *shape[1:]):
+                part.copy_(torch.randn(shape[1:], generator=gen,
+                                       device=gen.device).mul_(scale))
+        else:
+            w = torch.randn(full, generator=gen, device=gen.device).mul_(scale)
+            w = w.to(device=device, dtype=dtype)
     return nn.Parameter(w, requires_grad=False)
 
 
@@ -73,6 +83,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
     return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` (E, M, K) x (E, K, N) accumulated and returned in
+    float32, as ``matmul_f32`` (the reference's
+    ``einsum(..., preferred_element_type=float32)``)."""
+    if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

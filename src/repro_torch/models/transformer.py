@@ -1,5 +1,5 @@
-"""Decoder models of the port (``repro/models/transformer.py``): the hybrid
-and dense families.
+"""Decoder models of the port (``repro/models/transformer.py``): the hybrid,
+dense and moe families.
 
     hybrid (RecurrentGemma), unrolled over the block pattern
     ("rec", "rec", "attn"):
@@ -7,18 +7,23 @@ and dense families.
       attn : [RMSNorm → local attention → +] [RMSNorm → SwiGLU → +]
     dense (Qwen3, MiniCPM, Mistral-NeMo, DeepSeek, the paper's char-LM):
       [RMSNorm → GQA attention (qk-norm where set) → +] [RMSNorm → SwiGLU → +] × L
+    moe (Grok-1, Arctic):
+      [RMSNorm → GQA attention → +] [RMSNorm → MoE FFN (+ dense residual) → +] × L
 
-The dense stack keeps the reference's layer-stacked layout: each of its
-leaves has a leading layer axis (``layers.attn.wq`` is (L, d, H·dh)), as
-the reference's ``init_model`` builds it under ``jax.vmap``, so the weights
-carry across one to one and a decentralized trainer gossips the same
-leaves the reference gossips.  Its layer runner reads layer ``i`` of every
-leaf through a view, from the module or from a flat ``dict[str, Tensor]``
+The dense and moe stacks keep the reference's layer-stacked layout: each
+of their leaves has a leading layer axis (``layers.attn.wq`` is (L, d,
+H·dh), ``layers.ffn.w_gate`` of an MoE (L, E, d, f)), as the reference's
+``init_model`` builds it under ``jax.vmap``, so the weights carry across
+one to one and a decentralized trainer gossips the same leaves the
+reference gossips.  Their layer runner reads layer ``i`` of every leaf
+through a view, from the module or from a flat ``dict[str, Tensor]``
 (``{"layers.attn.wq": ..., ...}``, the dict a trainer stacks per worker).
 
 Entry points share one layer runner:
-  * ``forward``     — full-sequence logits (B, T, V)
-  * ``lm_loss``     — next-token cross-entropy (dense), optionally with the
+  * ``forward``     — full-sequence logits (B, T, V), with the MoE aux loss
+    on request (``with_aux``)
+  * ``lm_loss``     — next-token cross-entropy (dense, moe: plus
+    ``aux_weight`` times the MoE load-balance loss), optionally with the
     unembedding and the softmax in sequence chunks (``logit_chunk``);
     differentiable with ``torch.func``: its attention is
     ``_plain_attention`` (``plain_attention=True``), as the reference's
@@ -29,8 +34,8 @@ Entry points share one layer runner:
 
 Decode state is a tuple with one entry per layer: ``RGLRUState`` for a
 recurrent layer, a rolling ``KVCache`` for an attention layer.  The other
-families (moe, ssm, audio, vlm) are not ported yet (ROADMAP A4); asking
-for them raises ``NotImplementedError``.  The weights do not require
+families (ssm, audio, vlm) are not ported yet (ROADMAP A4); asking for
+them raises ``NotImplementedError``.  The weights do not require
 gradients: training differentiates ``lm_loss`` with respect to a flat
 parameter dict (``torch.func.grad``).
 """
@@ -44,11 +49,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models.layers import KVCache
 
 
-FAMILIES = ("hybrid", "dense")   # the families the port runs
+FAMILIES = ("hybrid", "dense", "moe")   # the families the port runs
+STACKED = ("dense", "moe")               # homogeneous, layer-stacked
 
 
 def _require_family(cfg: ModelConfig, families=FAMILIES) -> None:
@@ -80,9 +87,10 @@ class RecLayer(nn.Module):
         self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen)
 
 
-class DenseStack(nn.Module):
-    """The dense family's L identical blocks, layer-stacked: every leaf has
-    a leading layer axis (``ln1.scale`` (L, d), ``attn.wq`` (L, d, H·dh))."""
+class LayerStack(nn.Module):
+    """The L identical blocks of a dense or moe model, layer-stacked: every
+    leaf has a leading layer axis (``ln1.scale`` (L, d), ``attn.wq`` (L, d,
+    H·dh)); the FFN is a SwiGLU MLP or an MoE (``ffn.router`` (L, d, E))."""
 
     def __init__(self, cfg, gen, device):
         super().__init__()
@@ -90,7 +98,10 @@ class DenseStack(nn.Module):
         self.ln1 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
         self.attn = L.Attention(cfg, gen, device, lead)
         self.ln2 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
-        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen, lead)
+        if cfg.family == "moe":
+            self.ffn = MOE.MoE(cfg, gen, device, lead)
+        else:
+            self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen, lead)
 
 
 class Head(nn.Module):
@@ -102,8 +113,8 @@ class Head(nn.Module):
 
 class LM(nn.Module):
     """The model's weights; ``state_dict`` keys are the reference's pytree
-    paths (``embed.table``, ``layers.0.rec.w_in`` or, dense,
-    ``layers.attn.wq``, ``head.w``)."""
+    paths (``embed.table``, ``layers.0.rec.w_in`` or, dense and moe,
+    ``layers.attn.wq``, ``layers.ffn.router``, ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  gen: Optional[torch.Generator] = None):
@@ -111,8 +122,8 @@ class LM(nn.Module):
         _require_family(cfg)
         self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, cfg.pdtype,
                                  device, gen)
-        if cfg.family == "dense":
-            self.layers = DenseStack(cfg, gen, device)
+        if cfg.family in STACKED:
+            self.layers = LayerStack(cfg, gen, device)
         else:
             kinds = {"attn": AttnLayer, "rec": RecLayer}
             self.layers = nn.ModuleList(kinds[pt](cfg, gen, device)
@@ -134,6 +145,15 @@ def param_count(cfg: ModelConfig) -> int:
     """Exact parameter count from the model's shapes (built on the meta
     device: nothing is allocated)."""
     return sum(p.numel() for p in LM(cfg, torch.device("meta")).parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active parameters (an MoE counts its top-k experts only)."""
+    total = param_count(cfg)
+    if cfg.family != "moe":
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert
 
 
 def flat_params(model: LM) -> Dict[str, torch.Tensor]:
@@ -165,7 +185,7 @@ class _View:
         return _View(self._flat, key + ".")
 
 
-def _dense_layers(flat: Dict[str, torch.Tensor], n_layers: int):
+def _stacked_layers(flat: Dict[str, torch.Tensor], n_layers: int):
     """One view per layer of the layer-stacked leaves.  Each leaf is split
     once (``unbind``), so a gradient reaches it through one stack of its
     layers' gradients, not one full-size add per layer as indexing would
@@ -178,9 +198,9 @@ def _dense_layers(flat: Dict[str, torch.Tensor], n_layers: int):
 
 def _weights(model: Params, cfg: ModelConfig):
     """What the layer runner reads: the hybrid model's modules, or a view of
-    the dense model's flat parameters (from the module or a dict)."""
+    a stacked model's flat parameters (from the module or a dict)."""
     _require_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in STACKED:
         flat = model if isinstance(model, dict) else flat_params(model)
         return _View(flat)
     if isinstance(model, dict):
@@ -200,7 +220,10 @@ def _apply_attn_layer(p: AttnLayer, cfg, x, positions, state, window,
         build_cache=build_cache, plain=plain_attention)
     x = x + attn_out
     h = L.rmsnorm(p.ln2, x, cfg.norm_eps)
-    return x + L.apply_mlp(p.ffn, h), new_state
+    if cfg.family == "moe":
+        ffn_out, aux = MOE.apply_moe(p.ffn, cfg, h)
+        return x + ffn_out, new_state, aux
+    return x + L.apply_mlp(p.ffn, h), new_state, None
 
 
 def _apply_rec_layer(p: RecLayer, cfg, x, state):
@@ -214,8 +237,9 @@ def _apply_rec_layer(p: RecLayer, cfg, x, state):
 def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
                 build_cache: Optional[int] = None,
                 plain_attention: bool = False):
-    """Run all blocks of ``m`` (from ``_weights``).  Returns (x,
-    new_states_or_None).
+    """Run all blocks of ``m`` (from ``_weights``).  Returns (x, aux,
+    new_states_or_None); aux is the sum of the MoE layers' load-balance
+    losses (float32 0 for the other families).
 
     states given       → decode (per-layer state in/out)
     build_cache = size → prefill: construct decode states
@@ -227,10 +251,11 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
     window = cfg.attn_window
     collect = (states is not None) or (build_cache is not None)
     pattern = block_pattern(cfg)
-    if cfg.family == "dense":
-        layer_weights = _dense_layers(m._flat, cfg.n_layers)
+    if cfg.family in STACKED:
+        layer_weights = _stacked_layers(m._flat, cfg.n_layers)
     else:
         layer_weights = m.layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
     for i, (pt, lp) in enumerate(zip(pattern, layer_weights)):
         st = states[i] if states is not None else None
@@ -238,12 +263,14 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
             bc = build_cache if states is None else None
             if bc is not None and window:
                 bc = min(bc, window)
-            x, st2 = _apply_attn_layer(lp, cfg, x, positions, st, window, bc,
-                                       plain_attention)
+            x, st2, a = _apply_attn_layer(lp, cfg, x, positions, st, window,
+                                          bc, plain_attention)
+            if a is not None:
+                aux = aux + a
         else:
             x, st2 = _apply_rec_layer(lp, cfg, x, st)
         new_states.append(st2)
-    return x, (tuple(new_states) if collect else None)
+    return x, aux, (tuple(new_states) if collect else None)
 
 
 def _logits(m, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -257,21 +284,26 @@ def _logits(m, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(model: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, T) int.  Returns logits (B, T, V) in float32 (the ported
-    families have no auxiliary loss)."""
+def forward(model: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            with_aux: bool = False):
+    """tokens: (B, T) int.  Returns logits (B, T, V) in float32 or, with
+    ``with_aux``, (logits, aux) as the reference returns them: aux is the
+    MoE layers' summed load-balance loss (float32 0 for the other
+    families)."""
     m = _weights(model, cfg)
     x = L.embed(m.embed, tokens).to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, _ = _run_layers(m, cfg, x, positions)
+    x, aux, _ = _run_layers(m, cfg, x, positions)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
-    return _logits(m, cfg, x)
+    logits = _logits(m, cfg, x)
+    return (logits, aux) if with_aux else logits
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch,
-            logit_chunk: Optional[int] = None) -> torch.Tensor:
-    """Next-token cross-entropy of a dense model (float32 scalar).
+            logit_chunk: Optional[int] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy of a dense or moe model (float32 scalar),
+    plus ``aux_weight`` times the MoE load-balance loss, as the reference.
 
     ``params`` is the ``LM`` or one worker's flat parameter dict; batch:
     {"tokens": (B, T) int}.  Hidden state t predicts token t + 1.  With
@@ -281,14 +313,14 @@ def lm_loss(params: Params, cfg: ModelConfig, batch,
     chunk in its backward pass, which autograd here does not, so a chunk's
     logits stay alive for the backward.
     """
-    _require_family(cfg, ("dense",))
+    _require_family(cfg, STACKED)
     if batch.get("prefix") is not None:
         raise NotImplementedError("prefix embeddings (audio/vlm) are not ported")
     m = _weights(params, cfg)
     tokens = batch["tokens"]
     x = L.embed(m.embed, tokens).to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, _ = _run_layers(m, cfg, x, positions, plain_attention=True)
+    x, aux, _ = _run_layers(m, cfg, x, positions, plain_attention=True)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
     x = x[:, :-1]                    # shift: predict token t+1 from hidden t
     targets = tokens[:, 1:].long()
@@ -304,7 +336,7 @@ def lm_loss(params: Params, cfg: ModelConfig, batch,
             total = total + ce(x[:, a:b], targets[:, a:b])
     else:
         total = ce(x, targets)
-    return total / (targets.shape[0] * targets.shape[1])
+    return total / (targets.shape[0] * targets.shape[1]) + aux_weight * aux
 
 
 def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -314,7 +346,7 @@ def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
     m = _weights(model, cfg)
     x = L.embed(m.embed, tokens).to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, states = _run_layers(m, cfg, x, positions, build_cache=cache_len)
+    x, _, states = _run_layers(m, cfg, x, positions, build_cache=cache_len)
     x = L.rmsnorm(m.final_norm, x[:, -1:], cfg.norm_eps)
     return _logits(m, cfg, x)[:, 0], states
 
@@ -345,6 +377,6 @@ def decode_step(model: Params, cfg: ModelConfig, token: torch.Tensor, state,
     m = _weights(model, cfg)
     x = L.embed(m.embed, token[:, None]).to(cfg.cdtype)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    x, new_state = _run_layers(m, cfg, x, positions, states=state)
+    x, _, new_state = _run_layers(m, cfg, x, positions, states=state)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
     return _logits(m, cfg, x)[:, 0], new_state

@@ -8,9 +8,10 @@ Every test here needs a CUDA device and nvcc; without one each test skips
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (float32 atol 2e-5 / rtol 1e-4, bfloat16 2e-2; the scatter is an
 exact copy), a short trainer run on the card against the same run on the
-CPU from the same W0, and the reduced RecurrentGemma and a reduced dense
-LM on the card against the same weights on the CPU (logits within 1e-4,
-identical greedy tokens), the dense LM also trained on both.
+CPU from the same W0, and the reduced RecurrentGemma, a reduced dense LM
+and the reduced MoE LMs (grok-1, arctic) on the card against the same
+weights on the CPU (logits within 1e-4, identical greedy tokens), the dense
+LM also trained on both.
 """
 import pytest
 import torch
@@ -481,6 +482,8 @@ def test_linear_scan_kernel_matches_plain(cuda, B, Tn, W, kind, dt):
     (1, 3561, 10, 1, 128, 3562), (1, 3561, 10, 1, 256, 1),
     # qwen3-8b's prefill: dh 128, GQA 32/8, no window (window = T)
     (2, 1100, 32, 8, 128, 1100), (1, 4096, 32, 8, 128, 4096),
+    # grok-1's and arctic's prefills: GQA 48/8 and 56/8, dh 128, no window
+    (1, 2795, 48, 8, 128, 2795), (1, 3561, 56, 8, 128, 3561),
     # float32 keeps the CUDA-core kernel: dh = 64 at the float32 bound
     (1, 300, 4, 2, 64, 100)])
 def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
@@ -579,6 +582,63 @@ def test_reduced_dense_lm_on_the_card_matches_the_cpu(cuda):
     for k in grads[1]:
         torch.testing.assert_close(grads[0][k].cpu(), grads[1][k],
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("grok-1-314b", {}), ("grok-1-314b", {"moe_groups": 2}),
+    ("arctic-480b", {}), ("arctic-480b", {"moe_capacity_factor": 0.25})])
+def test_reduced_moe_lm_on_the_card_matches_the_cpu(cuda, arch, over):
+    """Reduced grok-1 / arctic from the same weights, as reduced, with two
+    dispatch groups and with a capacity that drops most pairs: prefill and 6
+    decode steps within 1e-4, one swa_attention launch per layer, the
+    server's greedy tokens identical; lm_loss and its gradient within
+    1e-4."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = T.init_model(cfg, None, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                             size=(3, 150)))
+    swas = swa_ops.swa_attention_cuda.launches
+    lg, st = T.prefill(card, cfg, toks.to(cuda), 160)
+    assert swa_ops.swa_attention_cuda.launches - swas == cfg.n_layers
+    lc, sc = T.prefill(cpu, cfg, toks, 160)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for i in range(6):
+        lg, st = T.decode_step(card, cfg, tok.to(cuda), st, 150 + i)
+        lc, sc = T.decode_step(cpu, cfg, tok, sc, 150 + i)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    outs = []
+    for model in (card, cpu):
+        reqs = [serve.Request(i, np.random.default_rng(i).integers(
+            1, cfg.vocab_size, size=n), 8) for i, n in enumerate((70, 130, 9))]
+        serve.BatchedServer(cfg, model, 2, 140).run(reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    grads = []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        batch = {"tokens": toks[:2, :64].to(dev)}
+        grads.append(torch.func.grad(lambda p: T.lm_loss(p, cfg, batch))(
+            T.flat_params(model)))
+    for k in grads[1]:
+        torch.testing.assert_close(grads[0][k].cpu(), grads[1][k],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_bf16_expert_products_return_float32_sums(cuda):
+    """``bmm_f32`` on bf16 card tensors takes cuBLAS's float32 output (the
+    reference's ``preferred_element_type``), as the float32 product of the
+    same bf16 values gives it."""
+    from repro_torch.models.layers import bmm_f32
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(8, 37, 512, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(8, 512, 96, generator=g).to(cuda, torch.bfloat16)
+    out = bmm_f32(a, b)
+    assert out.dtype == torch.float32
+    _close(out, torch.bmm(a.float(), b.float()), torch.float32)
 
 
 @pytest.mark.parametrize("mode", ["scan", "sparse_scan"])

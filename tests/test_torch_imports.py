@@ -39,6 +39,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.mistral_nemo_12b",
             "repro_torch.configs.deepseek_67b",
             "repro_torch.configs.paper_models"} <= set(mods)
+    assert {"repro_torch.models.moe", "repro_torch.configs.grok_1_314b",
+            "repro_torch.configs.arctic_480b"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

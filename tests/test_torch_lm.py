@@ -260,12 +260,12 @@ def test_cuda_is_the_default_and_never_replaced_by_the_cpu(cfgs):
 
 
 def test_other_families_are_not_ported_yet(cfgs):
-    moe = dataclasses.replace(cfgs[0], family="moe", block_pattern=())
+    ssm = dataclasses.replace(cfgs[0], family="ssm", block_pattern=())
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        T.init_model(moe, None, device="cpu")
+        T.init_model(ssm, None, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("grok-1-314b")
+        get_config("rwkv6-1.6b")
     # an option of another family is no field of the port's config, so it
     # cannot be set and silently left out
     with pytest.raises(TypeError):
-        dataclasses.replace(cfgs[0], n_experts=4)
+        dataclasses.replace(cfgs[0], rwkv_head_dim=64)
