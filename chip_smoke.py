@@ -95,14 +95,35 @@ non-zero, printing no result, when there is none or when any phase fails:
     through ``BatchedServer`` and ``lm_loss`` (its router gradient too),
     also with two dispatch groups and with a capacity factor that drops
     tokens: logits within 1e-4, the same greedy tokens;
+22. the ssm serve path: rwkv6-1.6b at full width and depth in bfloat16
+    (24 layers, d 2048, 32 heads of 64, d_ff 7168, vocab 65,536; random
+    weights from a seeded generator) behind ``BatchedServer`` with phase
+    6's traffic; counters zeroed before each wave and read after it (no
+    kernel: the chunked WKV recurrence is PyTorch ops, as the reference's
+    is a ``jax.lax.scan``); the decode state no larger than the empty one;
+23. the audio serve path: musicgen-large at full width and depth (48
+    layers, d 2048, MHA 32/32 at dh 64, d_ff 8192, vocab 2048), phase 6's
+    traffic (``swa_attention`` once per layer per prefill), then wave 0's
+    prompts behind the 256-frame stub prefix through ``prefill(...,
+    prefix_embeds=)`` and 31 decode steps;
+24. the same for llava-next-mistral-7b (32 layers, d 4096, GQA 32/8 at dh
+    128, d_ff 14336, vocab 32,000), its prefix the anyres worst case of
+    2880 patch embeddings (prefill length 6441);
+25. card vs CPU: reduced rwkv6, musicgen and llava (float32) from the same
+    weights, through ``BatchedServer``, a prefill (behind a prefix for
+    musicgen and llava) with 15 decode steps, ``lm_loss`` and, for rwkv6,
+    its gradient at a ragged T = 100: logits within 1e-4, tokens identical;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds the dense LM paths' shapes: ``masked_gossip`` at N=8,
 ``sparse_gossip`` and ``scatter_rows`` at A=8 of N=8, each at the 100m
 preset's widest leaf (D = 21,233,664), and ``swa_attention`` at qwen3-8b's
-prefill (B=4, T=4096, H=32, KV=8, dh=128, no window), and the MoE serve
-waves' (B=4, T 2795 and 3561, GQA 48/8 and 56/8, dh=128, no window).
+prefill (B=4, T=4096, H=32, KV=8, dh=128, no window), the MoE serve
+waves' (B=4, T 2795 and 3561, GQA 48/8 and 56/8, dh=128, no window), and
+the audio and vlm prefills' (B=4, no window, bf16, each timed against
+SDPA's causal mask: musicgen MHA 32/32 at dh 64, T 3561 and 3817 with its
+prefix; llava GQA 32/8 at dh 128, T 3561 and 6441 with its prefix).
 Each full-width model is freed before the next phase.
 """
 from __future__ import annotations
@@ -157,7 +178,9 @@ LM_ETA0 = 0.03
 CHAR_N, CHAR_EVENTS, CHAR_POOL = 256, 512, 4   # CharLMData draws ~6 ms each
 # phases 19-20: (arch, layers kept of the published depth, phase)
 MOE_SERVE = (("grok-1-314b", 4, "19"), ("arctic-480b", 2, "20"))
-SWA_GQA = ((48, 8), (56, 8))               # their heads / KV heads, dh 128
+# phases 22-24: the ssm, audio and vlm archs at full width and depth
+MM_SERVE = (("rwkv6-1.6b", "22"), ("musicgen-large", "23"),
+            ("llava-next-mistral-7b", "24"))
 MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
@@ -562,15 +585,28 @@ def check_sequence_kernels(device) -> list:
 
 
 def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
-              timed=False):
+              timed=False, per_sequence=False):
+    """One swa_attention case; ``per_sequence`` runs the plain version one
+    sequence of the batch at a time (its (H, T, T) float32 scores, 5.3 GB
+    at llava's prefix wave, would take 21 GB for the whole batch at once,
+    three times over)."""
     import torch
     import torch.nn.functional as F
     q = torch.randn(B * H, T, dh, generator=gen).to(device, dt)
     k = torch.randn(B * KV, T, dh, generator=gen).to(device, dt)
     v = torch.randn(B * KV, T, dh, generator=gen).to(device, dt)
     g = H // KV
+
+    def plain():
+        if not per_sequence:
+            return swa_ops.swa_attention_plain(q, k, v, window=window, n_groups=g)
+        return torch.cat([swa_ops.swa_attention_plain(
+            q[b * H:(b + 1) * H], k[b * KV:(b + 1) * KV],
+            v[b * KV:(b + 1) * KV], window=window, n_groups=g)
+            for b in range(B)])
+
     out = swa_ops.swa_attention_cuda(q, k, v, window=window, n_groups=g)
-    ref = swa_ops.swa_attention_plain(q, k, v, window=window, n_groups=g)
+    ref = plain()
     torch.cuda.synchronize()
     row = dict(kernel="swa_attention", dtype=dname, B=B, T=T, H=H, KV=KV,
                dh=dh, window=window, max_abs_err=close(out, ref, dname, SWA_TOL))
@@ -590,8 +626,7 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
         row.update(timings(
             lambda: swa_ops.swa_attention_cuda(q, k, v, window=window,
                                                n_groups=g), 20,
-            lambda: swa_ops.swa_attention_plain(q, k, v, window=window,
-                                                n_groups=g), 2,
+            plain, 2,
             lambda: F.scaled_dot_product_attention(q4, k4, v4, **mask)))
     return row
 
@@ -696,26 +731,36 @@ def check_lm_kernels(device) -> list:
     return rows
 
 
-def check_moe_kernels(device) -> list:
-    """``swa_attention`` at the MoE serve waves' prefill shapes: GQA 6
-    (grok-1, H=48 / KV=8) and 7 (arctic, H=56 / KV=8), dh 128, no window,
-    bf16, B=4 at both padded lengths; grok-1's first wave (T=3561) timed
-    against SDPA with its own causal mask."""
+def check_prefill_kernels(device) -> list:
+    """``swa_attention`` at the serve phases' prefill shapes, bf16, no
+    window, B=4: each attention arch of phases 19-20 and 23-24 at both of
+    phase 6's padded lengths, and the audio and vlm archs also behind their
+    stub prefix (T = 3561 + 256 and 3561 + 2880).  The rows at T = 3561 and
+    the prefixed ones are timed against SDPA with its own causal mask; the
+    prefixed ones run the plain version one sequence at a time.  Each row
+    carries its arch and prefix."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels.swa_attention import ops as swa_ops
 
     gen = torch.Generator().manual_seed(19)
+    T0 = max(SERVE_PADDED)
     rows = []
-    for H, KV in SWA_GQA:
-        for T in SERVE_PADDED:
+    for arch in [a for a, _, _ in MOE_SERVE] + [a for a, _ in MM_SERVE]:
+        cfg = get_config(arch)
+        if cfg.is_attention_free:
+            continue
+        H, KV, dh, P = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_prefix_tokens
+        for T, prefix in [(T, 0) for T in SERVE_PADDED] + ([(T0 + P, P)] if P else []):
             row = _swa_case(swa_ops, gen, device, "bfloat16", torch.bfloat16,
-                            4, T, H, KV, 128, T,
-                            timed=(H, T) == (SWA_GQA[0][0], max(SERVE_PADDED)))
-            row["moe"] = True
+                            4, T, H, KV, dh, T, timed=T >= T0,
+                            per_sequence=prefix > 0)
+            row.update(arch=arch, prefix=prefix)
             rows.append(row)
             torch.cuda.empty_cache()
-            print(f"[2] swa_attention bfloat16 at an MoE prefill (B=4, T={T}, "
-                  f"H={H}, KV={KV}, dh=128, no window): max abs err "
+            print(f"[2] swa_attention bfloat16 at {arch}'s prefill (B=4, T={T}"
+                  f"{f' = {T0} + {prefix} prefix' if prefix else ''}, H={H}, "
+                  f"KV={KV}, dh={dh}, no window): max abs err "
                   f"{row['max_abs_err']:.3e}" + (
                       f"; device {row['device_ms']:.4f} ms, call "
                       f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -867,15 +912,21 @@ def serve_requests(vocab: int):
 
 def serve_full_width(device, build_s: float, arch: str = ARCH,
                      tag: str = "6", layers: int = None) -> dict:
-    """Phase 6 (RecurrentGemma-2B), 16 (qwen3-8b), 19 (grok-1-314b) or 20
-    (arctic-480b): ``arch`` at its published widths behind BatchedServer,
-    its depth cut to ``layers`` where given; each prefill launches
-    ``linear_scan`` once per recurrent layer, ``swa_attention`` once per
-    attention layer and no other kernel."""
+    """Phase 6 (RecurrentGemma-2B), 16 (qwen3-8b), 19 (grok-1-314b), 20
+    (arctic-480b), 22 (rwkv6-1.6b), 23 (musicgen-large) or 24
+    (llava-next-mistral-7b): ``arch`` at its published widths behind
+    BatchedServer, its depth cut to ``layers`` where given; each prefill
+    launches ``linear_scan`` once per recurrent layer, ``swa_attention``
+    once per attention layer and no other kernel (rwkv6: none).  An ssm
+    model's decode state must hold no more bytes than the empty one; an
+    audio or vlm model then serves one wave behind its stub prefix
+    (``prefix_wave``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models.transformer import decode_step, init_model, prefill
+    from repro_torch.models.transformer import (block_pattern, decode_step,
+                                                init_decode_state, init_model,
+                                                prefill)
 
     cfg = get_config(arch)
     published = cfg.n_layers
@@ -900,8 +951,8 @@ def serve_full_width(device, build_s: float, arch: str = ARCH,
           f"{build_s + setup:.2f} s (build {build_s:.2f}, init and warm-up "
           f"{setup:.2f}); cache_len {cache_len}")
     launches = {"linear_scan": 0, "swa_attention": 0}
-    n_rec = sum(1 for pt in cfg._pattern_expanded() if pt == "rec")
-    n_attn = cfg.n_layers - n_rec
+    n_rec = block_pattern(cfg).count("rec")
+    n_attn = block_pattern(cfg).count("attn")
     peaks = []
     for w, wave in enumerate(waves):
         torch.cuda.reset_peak_memory_stats(device)
@@ -945,19 +996,88 @@ def serve_full_width(device, build_s: float, arch: str = ARCH,
         toks[j, T - len(r.prompt):] = torch.from_numpy(r.prompt)
     logits, state = prefill(model, cfg, toks.to(device), cache_len)
     cur = logits.argmax(-1)
-    logits2, _ = decode_step(model, cfg, cur, state, T)
+    logits2, state = decode_step(model, cfg, cur, state, T)
     require(bool(torch.isfinite(logits).all() and torch.isfinite(logits2).all()),
             "non-finite logits")
     require(cur.tolist() == [r.out[0] for r in wave]
             and logits2.argmax(-1).tolist() == [r.out[1] for r in wave],
             "prefill/decode_step disagree with the server's tokens")
+    state_bytes = None
+    if cfg.family == "ssm":
+        def storage_bytes(st):
+            return sum(t.untyped_storage().nbytes() for s in st for t in s)
+        state_bytes = storage_bytes(state)
+        empty = storage_bytes(init_decode_state(cfg, len(wave), cache_len, device))
+        print(f"[{tag}] decode state after a {T}-token prefill and a step: {state_bytes:,} "
+              f"bytes; the empty state's: {empty:,}")
+        require(state_bytes == empty,
+                "the ssm decode state grows with the prompt")
+    del state, logits, logits2   # before the prefix wave's peak memory
     ttft = [s.first_token_s for s in server.stats[1:]]
+    prefixed = prefix_wave(device, cfg, model, waves[0], tag) if cfg.frontend else None
     return dict(launches=launches, peak_bytes=peak, ttft=ttft,
+                state_bytes=state_bytes, prefixed=prefixed,
                 n_params=n_params, n_layers=cfg.n_layers,
                 published_layers=published, wave_peaks=peaks,
                 prefill_tok_s=sum(s.prompt_tokens for s in server.stats[1:]) / sum(ttft),
                 decode_tok_s=sum(s.batch * s.decode_steps for s in server.stats[1:])
                 / sum(s.decode_s for s in server.stats[1:]))
+
+
+def prefix_wave(device, cfg, model, first_wave, tag: str) -> dict:
+    """Phases 23-24: the prompts of phase 6's first wave behind the
+    config's stub-frontend prefix (``make_stub_prefix``: 256 frames for
+    musicgen-large, anyres 2880 patches for llava-next), prefilled through
+    ``prefill(..., prefix_embeds=)`` and decoded for SERVE_NEW tokens;
+    counters zeroed before and read after (``swa_attention`` once per layer
+    in the prefill, nothing in decode); finite logits one step further."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.multimodal import anyres_tile_count, make_stub_prefix
+    from repro_torch.models.transformer import decode_step
+
+    P = cfg.n_prefix_tokens
+    if cfg.frontend == "vision":
+        require(anyres_tile_count((672, 672)) == P, "llava's prefix is not anyres 2880")
+    wave = [Request(rid=r.rid, prompt=r.prompt, max_new=SERVE_NEW)
+            for r in first_wave]
+    T = max(len(r.prompt) for r in wave)
+    prefix = make_stub_prefix(torch.Generator(device=device).manual_seed(1),
+                              cfg, len(wave), device)
+    server = BatchedServer(cfg, model, SERVE_SLOTS, P + T + SERVE_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    cur, host, state, pos = server.prefill_wave(wave, prefix)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = server.decode_wave(wave, cur, host, state, pos)
+    decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    expected = dict.fromkeys(counts, 0)
+    expected["swa_attention"] = cfg.n_layers
+    require(counts == expected, f"the prefix wave launched {counts}, not "
+            f"{cfg.n_layers} swa_attention and no other kernel")
+    require(pos == P + T, f"decode starts at {pos}, not P + T = {P + T}")
+    require(all(len(r.out) == SERVE_NEW and all(0 <= t < cfg.vocab_size
+                                                 for t in r.out) for r in wave),
+            "prefix wave: tokens missing or out of the vocabulary")
+    last = torch.tensor([r.out[-1] for r in wave], device=device)
+    logits, _ = decode_step(model, cfg, last, state, pos + steps)
+    require(bool(torch.isfinite(logits).all()), "prefix wave: non-finite logits")
+    differs = sum(r.out != q.out for r, q in zip(wave, first_wave))
+    rate = len(wave) * steps / decode_s
+    print(f"[{tag}] prefix wave: {len(wave)} prompts {[len(r.prompt) for r in wave]} "
+          f"behind {P} stub-frontend embeddings, prefill length {P + T}")
+    print(f"[{tag}] prefix wave: time to first token {first:.4f} s; decode "
+          f"{rate:.1f} tok/s ({steps} steps in {decode_s:.4f} s); launches "
+          f"{counts}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"{differs} of {len(wave)} requests' tokens differ from the "
+          f"unprefixed wave's")
+    return dict(first_token_s=first, decode_tok_s=rate, peak_bytes=peak,
+                launches=counts["swa_attention"], length=P + T)
 
 
 def serve_card_vs_cpu(device) -> None:
@@ -1067,6 +1187,82 @@ def moe_card_vs_cpu(device) -> None:
         require(outs[0] == outs[1], f"{cfg.name} {over}: greedy tokens differ")
         require(abs(losses[0] - losses[1]) <= 1e-4 and gerr <= 1e-4,
                 f"{cfg.name} {over}: lm_loss or its gradient disagree")
+
+
+def mm_card_vs_cpu(device) -> None:
+    """Phase 25: reduced rwkv6, musicgen and llava (float32) on the card and
+    on the CPU from the same weights: prefill of a ragged T (64-200 tokens,
+    behind an 8-embedding stub prefix for musicgen and llava) and 15
+    decode steps with logits within 1e-4 and the same greedy tokens, the
+    server's tokens identical, ``lm_loss`` (with the prefix) within 1e-4,
+    and for rwkv6 the gradient of ``lm_loss`` at T = 100 (64 + 36) within
+    1e-4; ``swa_attention`` once per layer in an audio / vlm prefill, never
+    for rwkv6."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import (decode_step, flat_params,
+                                                init_model, lm_loss, prefill)
+
+    for arch, _ in MM_SERVE:
+        cfg = get_config(arch).reduced()
+        cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card = init_model(cfg, None, device=device)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in rng.integers(64, 201, size=6)]
+        T = max(len(p) for p in prompts[:4])
+        toks = torch.zeros((4, T), dtype=torch.int64)
+        for j, p in enumerate(prompts[:4]):
+            toks[j, T - len(p):] = torch.from_numpy(p)
+        P = cfg.n_prefix_tokens
+        pre = (torch.from_numpy(rng.normal(size=(4, P, cfg.d_model)) * 0.02).float()
+               if P else None)
+        to_card = (lambda t: None if t is None else t.to(device))
+        reset_counts()
+        lg, sg = prefill(card, cfg, toks.to(device), P + T + 16, to_card(pre))
+        counts = read_counts()
+        expected = dict.fromkeys(counts, 0)
+        expected["swa_attention"] = 0 if cfg.family == "ssm" else cfg.n_layers
+        require(counts == expected, f"{cfg.name}: the prefill launched {counts}")
+        lc, sc = prefill(cpu, cfg, toks, P + T + 16, pre)
+        err = float((lg.cpu() - lc).abs().max())
+        for i in range(15):
+            tok = lc.argmax(-1)
+            require(torch.equal(lg.argmax(-1).cpu(), tok),
+                    f"{cfg.name}: step {i}: tokens differ")
+            lg, sg = decode_step(card, cfg, tok.to(device), sg, P + T + i)
+            lc, sc = decode_step(cpu, cfg, tok, sc, P + T + i)
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+        outs = []
+        for model in (card, cpu):
+            reqs = [Request(rid=i, prompt=p, max_new=8)
+                    for i, p in enumerate(prompts)]
+            BatchedServer(cfg, model, 4, 216).run(reqs)
+            outs.append([r.out for r in reqs])
+        losses, grads = [], []
+        for model, dev in ((card, device), (cpu, torch.device("cpu"))):
+            batch = {"tokens": toks[:, :100].to(dev), "prefix": (
+                None if pre is None else pre.to(dev))}
+            losses.append(float(lm_loss(model, cfg, batch)))
+            if cfg.family == "ssm":
+                grads.append(torch.func.grad(lambda p: lm_loss(p, cfg, batch))(
+                    flat_params(model)))
+        gerr = max((float((grads[0][k].cpu() - grads[1][k]).abs().max())
+                    for k in grads[1]), default=0.0) if grads else None
+        print(f"[25] {cfg.name} card vs CPU: prompts {[len(p) for p in prompts]}"
+              f"{f' behind a {P}-embedding prefix' if P else ''}; max |logits| "
+              f"err over prefill and 15 decode steps {err:.3e}; server tokens "
+              f"identical: {outs[0] == outs[1]}; lm_loss {losses[0]:.6f} / "
+              f"{losses[1]:.6f}" + (f"; gradient err {gerr:.3e} over "
+                                   f"{len(grads[1])} leaves" if grads else ""))
+        require(err <= 1e-4, f"{cfg.name}: logits disagree by {err}")
+        require(outs[0] == outs[1], f"{cfg.name}: greedy tokens differ")
+        require(abs(losses[0] - losses[1]) <= 1e-4,
+                f"{cfg.name}: lm_loss disagrees")
+        require(gerr is None or gerr <= 1e-4, f"{cfg.name}: gradients disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1620,14 +1816,14 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = (check_kernels(device) + check_mix_kernels(device)
             + check_sequence_kernels(device) + check_lm_kernels(device)
-            + check_moe_kernels(device))
+            + check_prefill_kernels(device))
     _FLUSH.clear()   # else its buffer counts in phase 6's peak memory
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
           f"({time.perf_counter() - t0:.1f} s); times in ms:")
     for r in rows:
         if "ms" in r:
             print("    " + json.dumps(r))
-    main_rows = [r for r in rows if not (r.get("lm") or r.get("moe"))]
+    main_rows = [r for r in rows if not (r.get("lm") or "arch" in r)]
     for r in rows:
         if r["kernel"] == "gossip_mix" and "ms" in r:
             print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
@@ -1776,6 +1972,20 @@ def main() -> int:
     # -- 21. card vs CPU: reduced grok-1 and arctic ----------------------------
     moe_card_vs_cpu(device)
 
+    # -- 22-24. rwkv6-1.6b, musicgen-large, llava-next at full width and depth --
+    served_mm = {}
+    for arch, tag in MM_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] resident before the model: "
+              f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+        served_mm[arch] = serve_full_width(device, build_s, arch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25. card vs CPU: reduced rwkv6, musicgen and llava ----------------------
+    mm_card_vs_cpu(device)
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -1818,8 +2028,15 @@ def main() -> int:
                 "train_100m_scan": trained["auto"]["launches"],
                 "train_100m_sparse_scan": trained["sparse_scan"]["launches"],
                 "train_char_lm_n256": trained["char_lm"]["launches"]}
-    moe_paths = {f"serve_{a.replace('-', '_')}": served_moe[a]["launches"]
-                 for a, _, _ in MOE_SERVE}
+    # launches on the MoE (19-20) and ssm / audio / vlm (22-24) serve paths: two
+    # waves each, and the audio / vlm prefix waves
+    serve_paths = {f"serve_{a.replace('-', '_').replace('.', '_')}":
+                   served_moe[a]["launches"] for a, _, _ in MOE_SERVE}
+    serve_paths.update({f"serve_{a.replace('-', '_').replace('.', '_')}":
+                        served_mm[a]["launches"] for a, _ in MM_SERVE})
+    serve_paths.update({f"prefix_wave_{a.replace('-', '_')}":
+                        {"swa_attention": served_mm[a]["prefixed"]["launches"]}
+                        for a, _ in MM_SERVE[1:]})
     timed_keys = ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
                   "bound_by", "library_ms", "library_device_ms", "max_abs_err")
     kernels = []
@@ -1828,7 +2045,7 @@ def main() -> int:
         at = [r for r in main_rows if r["kernel"] == kname and "ms" in r
               and all(r.get(k) == v for k, v in sel.items())][0]
         lm_at = [r for r in mine if r.get("lm") and "ms" in r]
-        moe_at = [r for r in mine if r.get("moe") and "ms" in r]
+        prefills = [r for r in mine if "arch" in r]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -1849,11 +2066,11 @@ def main() -> int:
                                                    "lanes") if k in lm_at[0]}
                          if lm_at else None),
             "lm": ({k: lm_at[0][k] for k in timed_keys} if lm_at else None),
-            "launches_moe": {path: c.get(kname, 0) for path, c in moe_paths.items()},
-            "moe_shape": ({k: moe_at[0][k] for k in ("dtype", "B", "T", "H", "KV",
-                                                     "dh", "window")}
-                          if moe_at else None),
-            "moe": ({k: moe_at[0][k] for k in timed_keys} if moe_at else None),
+            "launches_serve": {path: c.get(kname, 0)
+                               for path, c in serve_paths.items()},
+            "prefills": [{k: r[k] for k in ("arch", "prefix", "dtype", "B", "T",
+                                            "H", "KV", "dh", "window")
+                          + timed_keys if k in r} for r in prefills],
         })
     cli_eps = ", ".join(f"{a} {r['eps']:.1f} ({r['steady_eps']:.1f} after "
                         f"set-up)" for a, r in xp["runs"].items())
@@ -1886,6 +2103,19 @@ def main() -> int:
               f"{', '.join(f'{t:.4f}' for t in m['ttft'])} s, decode "
               f"{m['decode_tok_s']:.1f} tok/s, peak per wave "
               f"{', '.join(f'{b / 2**30:.2f}' for b in m['wave_peaks'])} GiB")
+    for arch, tag in MM_SERVE:
+        m = served_mm[arch]
+        pw = m["prefixed"]
+        print(f"[8] serve {arch} ({m['n_params']:,} parameters, all "
+              f"{m['n_layers']} layers): prefill {m['prefill_tok_s']:.1f} prompt "
+              f"tok/s, time to first token "
+              f"{', '.join(f'{t:.4f}' for t in m['ttft'])} s, decode "
+              f"{m['decode_tok_s']:.1f} tok/s, peak per wave "
+              f"{', '.join(f'{b / 2**30:.2f}' for b in m['wave_peaks'])} GiB"
+              + (f"; prefix wave (length {pw['length']}): first token "
+                 f"{pw['first_token_s']:.4f} s, decode {pw['decode_tok_s']:.1f} "
+                 f"tok/s, peak {pw['peak_bytes'] / 2**30:.2f} GiB" if pw else
+                 f"; decode state {m['state_bytes']:,} bytes"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

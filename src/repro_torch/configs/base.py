@@ -1,10 +1,9 @@
 """Architecture configuration of the port's language models.
 
-The port of the reference's ``repro/configs/base.py``: ``reduced()`` and
-the registry, with torch dtypes.  :class:`ModelConfig` holds only the
-reference's fields that the ported families read (hybrid, dense and
-moe); each later family adds its own, so a config cannot ask for an option
-the port would silently leave out.  Each architecture is a module under
+The port of the reference's ``repro/configs/base.py``: the reference's
+fields, ``param_count()``, ``reduced()`` and the registry, with torch
+dtypes.  Every family of the reference is ported (dense, moe, ssm,
+hybrid, audio, vlm).  Each architecture is a module under
 ``repro_torch/configs/`` that registers its config on import.
 """
 from __future__ import annotations
@@ -20,10 +19,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # hybrid | dense | moe (the others are not ported)
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
-    n_heads: int
+    n_heads: int                      # 0 for attention-free (ssm)
     n_kv_heads: int
     d_ff: int
     vocab_size: int
@@ -42,6 +41,11 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     rnn_width: int = 0                # RG-LRU state width (default d_model)
     conv_width: int = 4
+    # --- ssm (rwkv6) ---
+    rwkv_head_dim: int = 64
+    # --- multimodal stub frontend ---
+    frontend: Optional[str] = None    # None | "audio" | "vision"
+    n_prefix_tokens: int = 0          # patch/frame embeddings prepended
     # --- misc ---
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -64,14 +68,28 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic path available (native SSM/hybrid or SWA variant)."""
+        return True  # every arch has SSM/hybrid recurrence or the SWA variant
+
+    def with_sliding_window(self, window: int = 8192) -> "ModelConfig":
+        """SWA variant used for the long_500k decode shape on quadratic archs."""
+        if self.family == "ssm":
+            return self  # natively O(1) state
+        return dataclasses.replace(self, attn_window=window,
+                                   notes=self.notes + f" [swa{window} variant]")
+
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head) of a dense
-        or MoE config, the reference's formula (``repro/configs/base.py``)."""
-        if self.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"param_count() covers the dense and moe families; {self.name} "
-                f"is {self.family!r} (transformer.param_count counts any ported "
-                "model from its shapes)")
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula (``repro/configs/base.py``): exact for the
+        dense, moe, audio and vlm families, approximate for ssm (12·d² a
+        layer) and hybrid; ``transformer.param_count`` counts any model
+        exactly from its shapes."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         total = v * d + d                               # embed, final norm
         if not self.tie_embeddings:
@@ -81,13 +99,29 @@ class ModelConfig:
                     + self.n_heads * self.d_head * d)   # wo
         if self.qk_norm:
             per_attn += 2 * self.d_head
+        per_mlp_dense = 3 * d * f
+        per_norms = 2 * d
         if self.family == "moe":
             per_ffn = self.n_experts * 3 * d * f + d * self.n_experts
             if self.dense_residual_ff:
                 per_ffn += 3 * d * self.dense_residual_ff
         else:
-            per_ffn = 3 * d * f
-        return total + L * (per_attn + per_ffn + 2 * d)
+            per_ffn = per_mlp_dense
+        if self.family == "ssm":
+            # rwkv6: time-mix (r,k,v,g,o,decay lora) + channel-mix, roughly 12 d²
+            return total + L * (12 * d * d + per_norms)
+        if self.family == "hybrid":
+            n_attn = sum(1 for b in self._pattern_expanded() if b == "attn")
+            w = self.rnn_width
+            per_rec = (2 * d * w              # in/gate proj
+                       + self.conv_width * w  # conv1d
+                       + 2 * w                # RG-LRU gates' diagonal params
+                       + 2 * w * d            # rec gates (input/recurrence)
+                       + w * d                # out proj
+                       + 2 * w * w // max(w, 1))
+            return (total + n_attn * (per_attn + per_mlp_dense + per_norms)
+                    + (L - n_attn) * (per_rec + per_mlp_dense + per_norms))
+        return total + L * (per_attn + per_ffn + per_norms)
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: the top-k experts only)."""
@@ -129,6 +163,8 @@ class ModelConfig:
                                if self.dense_residual_ff else 0),
             rnn_width=min(self.rnn_width, d) if self.rnn_width else 0,
             attn_window=min(self.attn_window, 64) if self.attn_window else None,
+            n_prefix_tokens=(min(self.n_prefix_tokens, 8)
+                             if self.n_prefix_tokens else 0),
             param_dtype="float32",
             compute_dtype="float32",
         )

@@ -6,16 +6,25 @@ with token 0 to its longest prompt, prefilled once, then decoded step by
 step; every request of a wave gets its own number of new tokens.  Each
 step fetches the wave's tokens to the host once.  ``--demo`` runs the
 reduced config; ``--layers`` keeps the published widths and cuts the
-depth (a model whose weights exceed the card).  Any ported family serves:
-hybrid (``recurrentgemma-2b``), dense (``qwen3-8b``, ``minicpm-2b``,
-``mistral-nemo-12b``, ``deepseek-67b``) and moe (``grok-1-314b``,
-``arctic-480b``: capacity-routed experts, arctic's dense residual);
-prefill attention runs the ``swa_attention`` kernel (no window for the
-dense and moe archs), decode reads the KV cache in plain PyTorch.
+depth (a model whose weights exceed the card).  Every arch of the
+registry serves: hybrid (``recurrentgemma-2b``), dense (``qwen3-8b``,
+``minicpm-2b``, ``mistral-nemo-12b``, ``deepseek-67b``,
+``paper-char-lm``), moe (``grok-1-314b``, ``arctic-480b``:
+capacity-routed experts, arctic's dense residual), ssm (``rwkv6-1.6b``:
+the chunked WKV recurrence in PyTorch, an O(1) decode state), audio
+(``musicgen-large``) and vlm (``llava-next-mistral-7b``); prefill
+attention runs the ``swa_attention`` kernel (no window for the dense, moe,
+audio and vlm archs), decode reads the KV cache in plain PyTorch.
+
+The server serves token prompts, as the reference's does: the audio and
+vlm archs' stub-frontend prefix goes through ``prefill(...,
+prefix_embeds=)`` (``models.multimodal.make_stub_prefix``), which
+``prefill_wave`` takes on request for a wave that is then decoded with
+``decode_wave`` (``launch/profile_serve.py --prefix``).
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --demo --device cpu
-  python -m repro_torch.launch.serve --arch qwen3-8b --demo --device cpu
-  python -m repro_torch.launch.serve --arch grok-1-314b --demo --device cpu
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --demo --device cpu
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b --demo --device cpu
   python -m repro_torch.launch.serve --arch qwen3-8b                 # on the card
   python -m repro_torch.launch.serve --arch grok-1-314b --layers 4   # on the card
 """
@@ -24,7 +33,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -83,19 +92,23 @@ class BatchedServer:
             first_token_s=t1 - t0, decode_s=time.perf_counter() - t1,
             decode_steps=steps))
 
-    def prefill_wave(self, wave: List[Request]):
-        """Left-pad the wave's prompts with 0 and prefill them; returns the
-        first greedy tokens (on the card and on the host), the decode state
-        and the padded length."""
+    def prefill_wave(self, wave: List[Request],
+                     prefix_embeds: Optional[torch.Tensor] = None):
+        """Left-pad the wave's prompts with 0 and prefill them, after
+        ``prefix_embeds`` (B, P, D) where given (``cache_len`` must then
+        hold P more positions); returns the first greedy tokens (on the
+        card and on the host), the decode state and the next token's
+        position (P + the padded length)."""
         max_len = max(len(r.prompt) for r in wave)
         toks = np.zeros((len(wave), max_len), np.int64)
         for j, r in enumerate(wave):
             toks[j, max_len - len(r.prompt):] = r.prompt   # left-pad with 0
         logits, state = prefill(self.model, self.cfg,
                                 torch.from_numpy(toks).to(self.device),
-                                self.cache_len)
+                                self.cache_len, prefix_embeds=prefix_embeds)
         cur = torch.argmax(logits, -1)
-        return cur, cur.tolist(), state, max_len
+        pos = max_len + (0 if prefix_embeds is None else prefix_embeds.shape[1])
+        return cur, cur.tolist(), state, pos
 
     def decode_wave(self, wave: List[Request], cur, host, state, pos: int) -> int:
         """Greedy decode from ``prefill_wave``'s result until every request

@@ -2,10 +2,12 @@
 
 ``lm_params_from_numpy`` takes the reference's ``init_model`` pytree with
 its leaves fetched to the host as NumPy arrays (nested dicts; the hybrid
-family's layers a tuple, indexed ``layers.{i}``; the dense and moe
-families' layers one dict of layer-stacked leaves, ``layers.attn.wq`` of
-shape (L, d, H·dh), ``layers.ffn.w_gate`` of an MoE (L, E, d, f), arctic's
-``layers.ffn.dense_residual.w_up``) and returns the port's model holding
+family's layers a tuple, indexed ``layers.{i}``; every other family's
+layers one dict of layer-stacked leaves: ``layers.attn.wq`` of shape (L, d,
+H·dh) for dense, moe, audio and vlm, ``layers.ffn.w_gate`` of an MoE (L, E,
+d, f), arctic's ``layers.ffn.dense_residual.w_up``, and for ssm
+``layers.time_mix.*`` (``w_r`` (L, d, d), ``bonus_u`` (L, H, K),
+``out_norm.scale``) and ``layers.channel_mix.*``) and returns the port's model holding
 the same values, so both packages compute the same function.
 ``lm_flat_params_from_numpy`` returns the same weights as the flat dict
 one worker of a decentralized trainer holds; ``load_numpy`` fills any of

@@ -1,5 +1,5 @@
-"""Decoder models of the port (``repro/models/transformer.py``): the hybrid,
-dense and moe families.
+"""Decoder models of the port (``repro/models/transformer.py``): all six
+families of the reference.
 
     hybrid (RecurrentGemma), unrolled over the block pattern
     ("rec", "rec", "attn"):
@@ -9,10 +9,17 @@ dense and moe families.
       [RMSNorm → GQA attention (qk-norm where set) → +] [RMSNorm → SwiGLU → +] × L
     moe (Grok-1, Arctic):
       [RMSNorm → GQA attention → +] [RMSNorm → MoE FFN (+ dense residual) → +] × L
+    ssm (RWKV6):
+      [RMSNorm → time-mix → +] [RMSNorm → channel-mix → +] × L
+    audio / vlm (MusicGen, LLaVA-NeXT): the dense wiring over a prefix of
+      stub-frontend embeddings (``models.multimodal``) prepended to the
+      token embeddings (``prefix_embeds``, ``batch["prefix"]``): positions
+      run over both, and logits and the loss cover text positions only
 
-The dense and moe stacks keep the reference's layer-stacked layout: each
-of their leaves has a leading layer axis (``layers.attn.wq`` is (L, d,
-H·dh), ``layers.ffn.w_gate`` of an MoE (L, E, d, f)), as the reference's
+The homogeneous stacks (every family but hybrid) keep the reference's
+layer-stacked layout: each of their leaves has a leading layer axis
+(``layers.attn.wq`` is (L, d, H·dh), ``layers.ffn.w_gate`` of an MoE (L,
+E, d, f), ``layers.time_mix.w_r`` (L, d, d)), as the reference's
 ``init_model`` builds it under ``jax.vmap``, so the weights carry across
 one to one and a decentralized trainer gossips the same leaves the
 reference gossips.  Their layer runner reads layer ``i`` of every leaf
@@ -33,11 +40,10 @@ Entry points share one layer runner:
   * ``decode_step`` — one token against the decode state
 
 Decode state is a tuple with one entry per layer: ``RGLRUState`` for a
-recurrent layer, a rolling ``KVCache`` for an attention layer.  The other
-families (ssm, audio, vlm) are not ported yet (ROADMAP A4); asking for
-them raises ``NotImplementedError``.  The weights do not require
-gradients: training differentiates ``lm_loss`` with respect to a flat
-parameter dict (``torch.func.grad``).
+recurrent layer, ``RWKVState`` for an RWKV layer (its size independent of
+the sequence's length), a rolling ``KVCache`` for an attention layer.  The
+weights do not require gradients: training differentiates ``lm_loss``
+with respect to a flat parameter dict (``torch.func.grad``).
 """
 from __future__ import annotations
 
@@ -51,21 +57,24 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv as RW
 from repro_torch.models.layers import KVCache
 
 
-FAMILIES = ("hybrid", "dense", "moe")   # the families the port runs
-STACKED = ("dense", "moe")               # homogeneous, layer-stacked
+FAMILIES = ("hybrid", "dense", "moe", "ssm", "audio", "vlm")
+STACKED = ("dense", "moe", "ssm", "audio", "vlm")   # homogeneous, layer-stacked
 
 
 def _require_family(cfg: ModelConfig, families=FAMILIES) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet here: "
-            f"this runs {', '.join(families)} (ROADMAP A4)")
+            f"family {cfg.family!r} ({cfg.name}): this runs "
+            f"{', '.join(families)}")
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.family == "ssm":
+        return ("rwkv",) * cfg.n_layers
     return cfg._pattern_expanded()
 
 
@@ -104,6 +113,19 @@ class LayerStack(nn.Module):
             self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.pdtype, device, gen, lead)
 
 
+class RWKVLayer(nn.Module):
+    """The L blocks of an ssm model, layer-stacked (``time_mix.w_r`` (L,
+    d, d), ``channel_mix.w_k`` (L, d, f))."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        lead = (cfg.n_layers,)
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
+        self.time_mix = RW.TimeMix(cfg, gen, device, lead)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg.pdtype, device, lead)
+        self.channel_mix = RW.ChannelMix(cfg, gen, device, lead)
+
+
 class Head(nn.Module):
     def __init__(self, cfg, gen, device):
         super().__init__()
@@ -113,8 +135,9 @@ class Head(nn.Module):
 
 class LM(nn.Module):
     """The model's weights; ``state_dict`` keys are the reference's pytree
-    paths (``embed.table``, ``layers.0.rec.w_in`` or, dense and moe,
-    ``layers.attn.wq``, ``layers.ffn.router``, ``head.w``)."""
+    paths (``embed.table``, ``layers.0.rec.w_in`` or, stacked,
+    ``layers.attn.wq``, ``layers.ffn.router``, ``layers.time_mix.w_r``,
+    ``head.w``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  gen: Optional[torch.Generator] = None):
@@ -122,7 +145,9 @@ class LM(nn.Module):
         _require_family(cfg)
         self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, cfg.pdtype,
                                  device, gen)
-        if cfg.family in STACKED:
+        if cfg.family == "ssm":
+            self.layers = RWKVLayer(cfg, gen, device)
+        elif cfg.family in STACKED:
             self.layers = LayerStack(cfg, gen, device)
         else:
             kinds = {"attn": AttnLayer, "rec": RecLayer}
@@ -226,6 +251,16 @@ def _apply_attn_layer(p: AttnLayer, cfg, x, positions, state, window,
     return x + L.apply_mlp(p.ffn, h), new_state, None
 
 
+def _apply_rwkv_layer(p: RWKVLayer, cfg, x, state: Optional[RW.RWKVState]):
+    h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
+    tm_out, S_new, last_tm = RW.apply_time_mix(p.time_mix, cfg, h, state)
+    x = x + tm_out
+    h = L.rmsnorm(p.ln2, x, cfg.norm_eps)
+    cm_out, last_cm = RW.apply_channel_mix(
+        p.channel_mix, h, state.shift_cm if state is not None else None)
+    return x + cm_out, RW.RWKVState(shift_tm=last_tm, shift_cm=last_cm, S=S_new)
+
+
 def _apply_rec_layer(p: RecLayer, cfg, x, state):
     h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
     rec_out, new_state = RG.apply_rglru_block(p.rec, cfg, h, state)
@@ -267,6 +302,8 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
                                           bc, plain_attention)
             if a is not None:
                 aux = aux + a
+        elif pt == "rwkv":
+            x, st2 = _apply_rwkv_layer(lp, cfg, x, st)
         else:
             x, st2 = _apply_rec_layer(lp, cfg, x, st)
         new_states.append(st2)
@@ -284,29 +321,44 @@ def _logits(m, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(model: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            with_aux: bool = False):
-    """tokens: (B, T) int.  Returns logits (B, T, V) in float32 or, with
-    ``with_aux``, (logits, aux) as the reference returns them: aux is the
-    MoE layers' summed load-balance loss (float32 0 for the other
-    families)."""
-    m = _weights(model, cfg)
+def _inputs(m, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor]):
+    """The embedded tokens after the prefix (cast to the compute dtype), the
+    positions 0..P+T-1 over both, and the prefix's length P."""
     x = L.embed(m.embed, tokens).to(cfg.cdtype)
+    n_prefix = 0
+    if prefix_embeds is not None:
+        n_prefix = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return x, positions, n_prefix
+
+
+def forward(model: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            with_aux: bool = False):
+    """tokens: (B, T) int; prefix_embeds: (B, P, D) or None.  Returns
+    logits (B, T, V) in float32 -- text positions only, the prefix is
+    conditioning -- or, with ``with_aux``, (logits, aux) as the reference
+    returns them: aux is the MoE layers' summed load-balance loss (float32
+    0 for the other families)."""
+    m = _weights(model, cfg)
+    x, positions, n_prefix = _inputs(m, cfg, tokens, prefix_embeds)
     x, aux, _ = _run_layers(m, cfg, x, positions)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
-    logits = _logits(m, cfg, x)
+    logits = _logits(m, cfg, x[:, n_prefix:])
     return (logits, aux) if with_aux else logits
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch,
             logit_chunk: Optional[int] = None,
             aux_weight: float = 0.01) -> torch.Tensor:
-    """Next-token cross-entropy of a dense or moe model (float32 scalar),
+    """Next-token cross-entropy of a layer-stacked model (float32 scalar),
     plus ``aux_weight`` times the MoE load-balance loss, as the reference.
 
     ``params`` is the ``LM`` or one worker's flat parameter dict; batch:
-    {"tokens": (B, T) int}.  Hidden state t predicts token t + 1.  With
+    {"tokens": (B, T) int, ["prefix": (B, P, D)]}.  Hidden state t predicts
+    token t + 1 over the text positions (the prefix is stripped first).  With
     ``logit_chunk`` the unembedding and the softmax run over sequence
     chunks of that many positions, summed in the reference's order (full
     chunks, then the remainder); the reference also rematerialises each
@@ -314,15 +366,12 @@ def lm_loss(params: Params, cfg: ModelConfig, batch,
     logits stay alive for the backward.
     """
     _require_family(cfg, STACKED)
-    if batch.get("prefix") is not None:
-        raise NotImplementedError("prefix embeddings (audio/vlm) are not ported")
     m = _weights(params, cfg)
     tokens = batch["tokens"]
-    x = L.embed(m.embed, tokens).to(cfg.cdtype)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, positions, n_prefix = _inputs(m, cfg, tokens, batch.get("prefix"))
     x, aux, _ = _run_layers(m, cfg, x, positions, plain_attention=True)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
-    x = x[:, :-1]                    # shift: predict token t+1 from hidden t
+    x = x[:, n_prefix:-1]            # shift: predict token t+1 from hidden t
     targets = tokens[:, 1:].long()
 
     def ce(xc, tc):
@@ -340,12 +389,13 @@ def lm_loss(params: Params, cfg: ModelConfig, batch,
 
 
 def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int):
-    """Full-sequence prefill.  Returns (last-token logits (B, V), decode
-    state); only the last position reaches the head."""
+            cache_len: int, prefix_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence prefill of the prefix (B, P, D), if any, then the
+    tokens.  Returns (last-token logits (B, V), decode state); only the
+    last position reaches the head.  The next token's position is P + T,
+    and ``cache_len`` must hold P + T + the tokens still to decode."""
     m = _weights(model, cfg)
-    x = L.embed(m.embed, tokens).to(cfg.cdtype)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, positions, _ = _inputs(m, cfg, tokens, prefix_embeds)
     x, _, states = _run_layers(m, cfg, x, positions, build_cache=cache_len)
     x = L.rmsnorm(m.final_norm, x[:, -1:], cfg.norm_eps)
     return _logits(m, cfg, x)[:, 0], states
@@ -354,12 +404,16 @@ def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: DeviceLike = "cuda"):
     """Empty per-layer decode state sized for a KV history of ``cache_len``;
-    the attention cache is ``min(window, cache_len)`` slots (rolling)."""
+    the attention cache is ``min(window, cache_len)`` slots (rolling).  An
+    ssm layer's state is zeros of a fixed size (S float32 (B, H, K, K))."""
     _require_family(cfg)
     dev = resolve_device(device)
     window = cfg.attn_window
     attn_len = min(window, cache_len) if window else cache_len
     dt = cfg.cdtype
+    if cfg.family == "ssm":
+        return tuple(RW.RWKVState.zeros(batch, cfg, dt, dev)
+                     for _ in range(cfg.n_layers))
 
     return tuple(
         KVCache.empty(batch, attn_len, cfg.n_kv_heads, cfg.d_head, dt, dev)

@@ -8,10 +8,10 @@ Every test here needs a CUDA device and nvcc; without one each test skips
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (float32 atol 2e-5 / rtol 1e-4, bfloat16 2e-2; the scatter is an
 exact copy), a short trainer run on the card against the same run on the
-CPU from the same W0, and the reduced RecurrentGemma, a reduced dense LM
-and the reduced MoE LMs (grok-1, arctic) on the card against the same
-weights on the CPU (logits within 1e-4, identical greedy tokens), the dense
-LM also trained on both.
+CPU from the same W0, and the reduced RecurrentGemma, a reduced dense LM,
+the reduced MoE LMs (grok-1, arctic) and the reduced rwkv6, musicgen and
+llava-next on the card against the same weights on the CPU (logits within
+1e-4, identical greedy tokens), the dense LM also trained on both.
 """
 import pytest
 import torch
@@ -500,6 +500,33 @@ def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
     _close(out, ref.reshape(B, H, Tn, dh).transpose(1, 2), dt)
 
 
+@pytest.mark.parametrize("B,Tn,H,KV,dh,dt", [
+    # musicgen-large's prefills (MHA 32/32, dh 64) at both waves' lengths,
+    # then behind its 256 frames
+    (4, 2795, 32, 32, 64, torch.bfloat16), (4, 3561, 32, 32, 64, torch.bfloat16),
+    (4, 3817, 32, 32, 64, torch.bfloat16),
+    # llava-next's (GQA 32/8, dh 128), then behind its 2880 patches
+    (4, 2795, 32, 8, 128, torch.bfloat16), (4, 3561, 32, 8, 128, torch.bfloat16),
+    (4, 6441, 32, 8, 128, torch.bfloat16),
+    # float32 at musicgen's head width (the CUDA-core kernel)
+    (1, 3817, 32, 32, 64, torch.float32)])
+def test_swa_attention_at_the_audio_and_vlm_prefills(cuda, B, Tn, H, KV, dh, dt):
+    """No window; the plain version one sequence at a time (its float32
+    scores at B = 4, T = 6441 would take 21 GB at once)."""
+    g = torch.Generator().manual_seed(Tn + dh)
+    q = torch.randn(B, Tn, H, dh, generator=g).to(cuda, dt)
+    k = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, dt)
+    v = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, dt)
+    before = swa_ops.swa_attention_cuda.launches
+    out = swa_ops.swa_attention(q, k, v, window=None)
+    assert swa_ops.swa_attention_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    for b in range(B):
+        flat = [t[b].transpose(0, 1).contiguous() for t in (q, k, v)]
+        ref = swa_ops.swa_attention_plain(*flat, window=Tn, n_groups=H // KV)
+        _close(out[b], ref.transpose(0, 1), dt)
+
+
 def test_sequence_kernels_refuse_what_they_cannot_launch(cuda):
     x = torch.zeros(1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="head width"):
@@ -624,6 +651,56 @@ def test_reduced_moe_lm_on_the_card_matches_the_cpu(cuda, arch, over):
         grads.append(torch.func.grad(lambda p: T.lm_loss(p, cfg, batch))(
             T.flat_params(model)))
     for k in grads[1]:
+        torch.testing.assert_close(grads[0][k].cpu(), grads[1][k],
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "musicgen-large",
+                                  "llava-next-mistral-7b"])
+def test_reduced_ssm_and_multimodal_lms_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced rwkv6 / musicgen / llava from the same weights: prefill of
+    150 tokens (behind an 8-embedding prefix for musicgen and llava) and 6
+    decode steps within 1e-4, one swa_attention launch per layer (none for
+    rwkv6), the server's greedy tokens identical; lm_loss with the prefix
+    within 1e-4, and rwkv6's gradient at T = 100 (64 + 36) within 1e-4."""
+    cfg = get_config(arch).reduced()
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = T.init_model(cfg, None, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(3, 150)))
+    P = cfg.n_prefix_tokens
+    pre = torch.as_tensor(rng.normal(size=(3, P, cfg.d_model)) * 0.02).float() if P else None
+    swas = swa_ops.swa_attention_cuda.launches
+    lg, st = T.prefill(card, cfg, toks.to(cuda), P + 160,
+                       prefix_embeds=None if pre is None else pre.to(cuda))
+    assert swa_ops.swa_attention_cuda.launches - swas == (
+        0 if cfg.family == "ssm" else cfg.n_layers)
+    lc, sc = T.prefill(cpu, cfg, toks, P + 160, prefix_embeds=pre)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for i in range(6):
+        lg, st = T.decode_step(card, cfg, tok.to(cuda), st, P + 150 + i)
+        lc, sc = T.decode_step(cpu, cfg, tok, sc, P + 150 + i)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    outs = []
+    for model in (card, cpu):
+        reqs = [serve.Request(i, np.random.default_rng(i).integers(
+            1, cfg.vocab_size, size=n), 8) for i, n in enumerate((70, 130, 9))]
+        serve.BatchedServer(cfg, model, 2, 140).run(reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    losses, grads = [], []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        batch = {"tokens": toks[:2, :100].to(dev),
+                 "prefix": None if pre is None else pre[:2].to(dev)}
+        losses.append(T.lm_loss(model, cfg, batch))
+        if cfg.family == "ssm":
+            grads.append(torch.func.grad(lambda p: T.lm_loss(p, cfg, batch))(
+                T.flat_params(model)))
+    torch.testing.assert_close(losses[0].cpu(), losses[1], atol=1e-4, rtol=1e-4)
+    for k in (grads[1] if grads else ()):
         torch.testing.assert_close(grads[0][k].cpu(), grads[1][k],
                                    atol=1e-4, rtol=1e-4)
 

@@ -41,6 +41,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.paper_models"} <= set(mods)
     assert {"repro_torch.models.moe", "repro_torch.configs.grok_1_314b",
             "repro_torch.configs.arctic_480b"} <= set(mods)
+    assert {"repro_torch.models.rwkv", "repro_torch.models.multimodal",
+            "repro_torch.configs.rwkv6_1_6b", "repro_torch.configs.musicgen_large",
+            "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -260,12 +260,14 @@ def test_cuda_is_the_default_and_never_replaced_by_the_cpu(cfgs):
 
 
 def test_other_families_are_not_ported_yet(cfgs):
-    ssm = dataclasses.replace(cfgs[0], family="ssm", block_pattern=())
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        T.init_model(ssm, None, device="cpu")
+    """Every family of the reference is ported now: what is not one of the
+    six is refused, as is an arch or an option that neither package has."""
+    other = dataclasses.replace(cfgs[0], family="encoder", block_pattern=())
+    with pytest.raises(NotImplementedError, match="this runs hybrid, dense"):
+        T.init_model(other, None, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("rwkv6-1.6b")
-    # an option of another family is no field of the port's config, so it
-    # cannot be set and silently left out
+        get_config("rwkv7-2.9b")
+    for arch in ("rwkv6-1.6b", "musicgen-large", "llava-next-mistral-7b"):
+        assert get_config(arch).family in T.FAMILIES
     with pytest.raises(TypeError):
-        dataclasses.replace(cfgs[0], rwkv_head_dim=64)
+        dataclasses.replace(cfgs[0], n_encoder_layers=2)
