@@ -113,11 +113,28 @@ non-zero, printing no result, when there is none or when any phase fails:
     weights, through ``BatchedServer``, a prefill (behind a prefix for
     musicgen and llava) with 15 decode steps, ``lm_loss`` and, for rwkv6,
     its gradient at a ragged T = 100: logits within 1e-4, tokens identical;
+26. training through the production launcher: recurrentgemma-2b at full
+    width and depth (26 layers, d 2560, vocab 256,000; 3,549,934,080
+    parameters a worker, bf16) through ``launch/train.py:main`` with
+    ``--workers 4 --seq 4096 --global-batch 8 --steps 3`` (each layer and
+    CE chunk rematerialised; the default straggler probability makes step
+    2 a straggler round); counters zeroed just before the steps and read
+    just after (``gossip_mix`` once per leaf per step, no other kernel);
+    every loss and leaf finite, the workers' mean of three leaves kept by
+    step 0's ring within the bf16 bound, step 2's gossip (P = I) leaving
+    every leaf bit-equal; seconds per step after step 0, tokens/s, peak
+    device memory;
+27. card vs CPU: one ``build_train_step`` step at N = 2 from one float32
+    W0 for each of the ten assigned archs reduced (T = 64), and reduced
+    recurrentgemma-2b and minicpm-2b at T = 1280 (blockwise attention, the
+    chunked RG-LRU scan): W within 1e-4, the loss within 1e-5;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 
-Phase 2 also holds the dense LM paths' shapes: ``masked_gossip`` at N=8,
-``sparse_gossip`` and ``scatter_rows`` at A=8 of N=8, each at the 100m
+Phase 2 also holds ``gossip_mix`` at phase 26's training shape (N = 4
+workers of the embed leaf, D = 655,360,000, bf16; timed against cuBLAS's
+bf16 ``torch.matmul(P.T, W)``), and the dense LM paths' shapes:
+``masked_gossip`` at N=8, ``sparse_gossip`` and ``scatter_rows`` at A=8 of N=8, each at the 100m
 preset's widest leaf (D = 21,233,664), and ``swa_attention`` at qwen3-8b's
 prefill (B=4, T=4096, H=32, KV=8, dh=128, no window), the MoE serve
 waves' (B=4, T 2795 and 3561, GQA 48/8 and 56/8, dh=128, no window), and
@@ -181,6 +198,22 @@ MOE_SERVE = (("grok-1-314b", 4, "19"), ("arctic-480b", 2, "20"))
 # phases 22-24: the ssm, audio and vlm archs at full width and depth
 MM_SERVE = (("rwkv6-1.6b", "22"), ("musicgen-large", "23"),
             ("llava-next-mistral-7b", "24"))
+# phase 26: recurrentgemma-2b trained at full width and depth through the
+# production launcher; step 2 is the straggler round of default_rng(0)'s
+# draws 0.637, 0.270, 0.041 against the default probability 0.1
+TRAIN_ARGV = ("--arch", ARCH, "--workers", "4", "--seq", "4096",
+              "--global-batch", "8", "--steps", "3")
+TRAIN_STRAGGLERS = (False, False, True)
+TRAIN_MEAN_LEAVES = ("embed.table", "layers.0.rec.w_in", "layers.2.attn.wq")
+# phase 2's gossip_mix row at the training shape: 4 workers of the embed leaf
+TRAIN_MIX = (4, 256000 * 2560)
+# calls per timing at that shape: cuBLAS's bf16 product there launches
+# ~600 kernels a call, and its profiled device time over 20 calls took 88 s
+# on the H100 (the row's phase-2 share, 98-101 s of 240, came down to it)
+TRAIN_MIX_REPS = 5
+# phase 27: reduced archs at the demo length, and at T = 1280 where
+# attention turns blockwise (T > 1024) and the RG-LRU scan chunked
+TRAIN_LONG = (("recurrentgemma-2b", 1280), ("minicpm-2b", 1280))
 MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
@@ -221,13 +254,19 @@ def timings(fn, reps: int, plain, plain_reps: int, library=None,
     if not _FLUSH:
         _FLUSH.append(l2_flush("cuda"))
     flush = _FLUSH[0]
-    row = dict(ms=time_ms(fn, reps),
-               device_ms=device_ms(fn, reps, launches, flush),
-               host_us=host_us(fn, reps), plain_ms=time_ms(plain, plain_reps),
-               library_ms=None, library_device_ms=None)
+    parts = dict(ms=lambda: time_ms(fn, reps),
+                 device_ms=lambda: device_ms(fn, reps, launches, flush),
+                 host_us=lambda: host_us(fn, reps),
+                 plain_ms=lambda: time_ms(plain, plain_reps))
     if library is not None:
-        row.update(library_ms=time_ms(library, reps),
-                   library_device_ms=device_ms(library, reps, flush=flush))
+        parts.update(library_ms=lambda: time_ms(library, reps),
+                     library_device_ms=lambda: device_ms(library, reps,
+                                                         flush=flush))
+    row = dict(library_ms=None, library_device_ms=None, spent_s={})
+    for k, part in parts.items():
+        t0 = time.perf_counter()
+        row[k] = part()
+        row["spent_s"][k] = time.perf_counter() - t0
     return row
 
 
@@ -521,6 +560,40 @@ def check_mix_kernels(device) -> list:
                     rows.append(row)
                     del W, out, ref
     return rows
+
+
+def train_mix_row(device) -> list:
+    """gossip_mix at phase 26's shape: N = 4 workers of recurrentgemma-2b's
+    embed leaf (D = 655,360,000), bf16, against its plain version; timed
+    with cuBLAS's bf16 ``torch.matmul(P.T, W)`` beside it.  Run last in
+    phase 2: its 5 GB operands and 40 ms calls stay out of the small
+    kernels' profiled windows."""
+    import torch
+    from repro_torch.kernels.gossip_mix import ops as gossip_ops
+    N, D = TRAIN_MIX
+    t0 = time.perf_counter()
+    W = torch.randn(N, D, generator=torch.Generator(device=device).manual_seed(26),
+                    device=device, dtype=torch.bfloat16)
+    P = torch.rand(N, N, generator=torch.Generator().manual_seed(26)) + torch.eye(N)
+    P = (P / P.sum(-1, keepdim=True)).to(device, torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = gossip_ops.gossip_mix_cuda(W, P)
+    ref = gossip_ops.gossip_mix_plain(W, P)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    row = dict(kernel="gossip_mix", dtype="bfloat16", E=None, N=N, D=D,
+               train=True, max_abs_err=close(out, ref, "bfloat16"))
+    del out, ref
+    spent = dict(operands=t1 - t0, first_calls=t2 - t1,
+                 compare=time.perf_counter() - t2)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        (2 * N * D + N * N) * 2, 2.0 * N * N * D, "bfloat16", PRODUCT_FLOPS)
+    row.update(timings(lambda: gossip_ops.gossip_mix_cuda(W, P), TRAIN_MIX_REPS,
+                       lambda: gossip_ops.gossip_mix_plain(W, P), 3,
+                       lambda: torch.matmul(P.T, W), launches=2))
+    row["spent_s"].update(spent)
+    return [row]
 
 
 def band_pairs(T: int, window: int) -> int:
@@ -1784,6 +1857,165 @@ def lm_card_vs_cpu(device, events: int = 16) -> None:
                 f"tiny LM {kw['mode']}: ptr differs")
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: the production training launcher
+# ---------------------------------------------------------------------------
+
+def _column_chunks(*leaves, width: int = 1 << 24):
+    """The (N, ...) leaves as (N, ≤ width) column slices, in step (so a
+    check's float32 temporaries stay ~N·width·4 bytes)."""
+    flat = [x.reshape(x.shape[0], -1) for x in leaves]
+    for a in range(0, flat[0].shape[1], width):
+        yield [x[:, a:a + width] for x in flat]
+
+
+def ring_err(before, after, P) -> float:
+    """The largest |after − Pᵀ·before| of one gossip over what one bf16
+    rounding of the float32 sum and its float32 error allow: 2⁻⁸·|Pᵀ·x| +
+    2⁻¹⁶·(Pᵀ·|x|), the sum taken in float32 with P as the step casts it.
+    Within 1 the output is the ring's mix; weights off by the workers' one-
+    step spread (η·g) show wherever |x| is below ~2⁸ times that spread."""
+    import torch
+    Pf = P.to(torch.float32)
+    x = before.to(torch.float32)
+    ref = torch.einsum("nd,nj->jd", x, Pf)
+    bound = (ref.abs() * 2.0**-8
+             + torch.einsum("nd,nj->jd", x.abs(), Pf.abs()) * 2.0**-16)
+    return float(((after.to(torch.float32) - ref).abs()
+                  / bound.clamp_min(1e-30)).max())
+
+
+def train_full_width(device) -> dict:
+    """Phase 26: recurrentgemma-2b at full width and depth (26 layers, d
+    2560, window 2048, vocab 256,000; 3,549,934,080 parameters a worker,
+    bf16) trained through ``launch/train.py:main`` as its users run it: 4
+    workers stacked on the card, seq 4096, global batch 8, 3 steps, the
+    default straggler probability.  Counters zeroed just before the steps
+    and read just after: ``gossip_mix`` once per leaf per step, no other
+    kernel.  Every loss and leaf finite; after step 0 three leaves are the
+    ring's mix of their pre-gossip workers (``ring_err`` ≤ 1) and keep the
+    workers' mean (bf16 bound); step 2, a straggler round (P = I), leaves
+    every post-SGD leaf bit-equal."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+
+    n = int(TRAIN_ARGV[TRAIN_ARGV.index("--workers") + 1])
+    P = ST.ring_matrix(n, ST.default_gossip_weights(n, False)).to(
+        device, torch.bfloat16)
+    draws = np.random.default_rng(0).random(len(TRAIN_STRAGGLERS))
+    require(tuple(bool(d < 0.1) for d in draws) == TRAIN_STRAGGLERS,
+            f"default_rng(0) drew {draws}")
+    drift, mixed, same, losses, secs, leaves = {}, {}, {}, [], [], []
+
+    def on_mix(k, key, before, after):
+        if k == 0 and key in TRAIN_MEAN_LEAVES:
+            tol = TOL["bfloat16"]
+            worst = mix = 0.0
+            for b, a in _column_chunks(before, after):
+                mb, ma = b.float().mean(0), a.float().mean(0)
+                worst = max(worst, float(((ma - mb).abs()
+                                          - tol["rtol"] * mb.abs()).max()))
+                mix = max(mix, ring_err(b, a, P))
+            drift[key], mixed[key] = worst, mix
+        if TRAIN_STRAGGLERS[k]:
+            same[key] = all(bool(torch.equal(b, a))
+                            for b, a in _column_chunks(before, after))
+
+    def on_step(k, loss, seconds, W):
+        losses.append(loss)
+        secs.append(seconds)
+        leaves.append(len(W))
+        bad = [key for key, w in W.items() if not bool(torch.isfinite(w).all())]
+        require(math.isfinite(loss) and not bad,
+                f"phase 26 step {k}: loss {loss}, non-finite leaves {bad[:4]}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = train.main(list(TRAIN_ARGV), on_mix=on_mix, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    require(rc == 0 and len(losses) == len(TRAIN_STRAGGLERS), f"rc {rc}")
+    n_leaves = leaves[0]
+    require(counts == dict({k: 0 for k in counts},
+                           gossip_mix=n_leaves * len(TRAIN_STRAGGLERS)),
+            f"phase 26 launched {counts} for {n_leaves} leaves")
+    require(set(mixed) == set(TRAIN_MEAN_LEAVES) and max(mixed.values()) <= 1.0,
+            f"a leaf is not the ring's mix of its workers: {mixed}")
+    require(max(drift.values()) <= TOL["bfloat16"]["atol"],
+            f"the ring moved the workers' mean: {drift}")
+    require(len(same) == n_leaves and all(same.values()),
+            "the straggler round changed leaves: "
+            f"{[k for k, v in same.items() if not v][:4]}")
+    tokens = int(TRAIN_ARGV[TRAIN_ARGV.index("--global-batch") + 1]) * int(
+        TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1])
+    steady = sum(secs[1:]) / len(secs[1:])
+    out = dict(losses=losses, seconds=secs, steady_s=steady,
+               tokens_per_s=tokens / steady, peak_bytes=peak, wall=wall,
+               launches=counts, leaves=n_leaves, drift=drift, mixed=mixed)
+    print(f"[26] {ARCH} trained through launch/train.py ({' '.join(TRAIN_ARGV)}): "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+          f"{', '.join(f'{x:.3f}' for x in secs)}; {steady:.3f} s/step after "
+          f"step 0 = {tokens / steady:.1f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} resident before); "
+          f"launches {counts} ({n_leaves} leaves); after step 0 ring_err "
+          f"{ {k: f'{v:.3f}' for k, v in mixed.items()} } (≤ 1), "
+          f"worker-mean drift over the bf16 bound "
+          f"{ {k: f'{v:.3e}' for k, v in drift.items()} }; straggler step "
+          f"bit-equal; {wall:.1f} s in main; card {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(device) -> None:
+    """Phase 27: one ``build_train_step`` step at N = 2 (the default ring,
+    self 1/2) from one float32 W0 on the card and on the CPU, for each of
+    the ten assigned archs reduced (seq 64, the CLI's demo length and
+    logit chunk 16) and for reduced recurrentgemma-2b and minicpm-2b at T =
+    1280 (blockwise attention, the chunked scan): W within 1e-5, the loss
+    within 1e-5.  Beside the error it prints the step's largest change of
+    W on the CPU, the scale the limit is read against."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.launch import steps as ST
+
+    worst = {}
+    for arch, T in [(a, 64) for a in ASSIGNED] + list(TRAIN_LONG):
+        cfg = get_config(arch).reduced()
+        W0 = ST.stacked_init(cfg, 2, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 2, T)).astype(np.int32))
+        gw = ST.default_gossip_weights(2, False)
+        res = {}
+        for dev in (device, torch.device("cpu")):
+            batch = {"tokens": toks.to(dev)}
+            if cfg.frontend:
+                batch["prefix"] = torch.zeros(
+                    (2, 2, cfg.n_prefix_tokens, cfg.d_model), device=dev)
+            W = {k: v.to(dev, copy=True) for k, v in W0.items()}
+            step = ST.build_train_step(cfg, 2, logit_chunk=16, device=dev)
+            res[dev.type] = step(W, batch, 0.05, gw)
+        (Wg, lg), (Wc, lc) = res["cuda"], res["cpu"]
+        err = max(float((Wg[k].cpu() - Wc[k]).abs().max()) for k in Wc)
+        moved = max(float((Wc[k] - W0[k]).abs().max()) for k in Wc)
+        lerr = abs(float(lg) - float(lc))
+        worst[f"{arch}@{T}"] = (err, lerr, moved)
+        require(err <= 1e-5 and lerr <= 1e-5,
+                f"phase 27 {arch} T={T}: card and CPU disagree, W {err}, loss {lerr}")
+    print("[27] one train step at N=2, card vs CPU (max |W| err, |loss| err; "
+          "max |W1 - W0|): " + ", ".join(f"{k} {e:.2e} / {l:.2e}; {m:.2e}"
+                                         for k, (e, l, m) in worst.items()))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1812,19 +2044,42 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {src}: {line.strip()}")
 
+    # wall seconds of each phase, in the order run (build: phase 1)
+    phase_s, clock = {"1": build_s}, [time.perf_counter()]
+
+    def lap(tag: str) -> None:
+        now = time.perf_counter()
+        phase_s[tag], clock[0] = now - clock[0], now
+
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
-    rows = (check_kernels(device) + check_mix_kernels(device)
-            + check_sequence_kernels(device) + check_lm_kernels(device)
-            + check_prefill_kernels(device))
+    rows, part_s = [], {}
+    for check in (check_kernels, check_mix_kernels, check_sequence_kernels,
+                  check_lm_kernels, check_prefill_kernels, train_mix_row):
+        t1 = time.perf_counter()
+        rows += check(device)
+        part_s[check.__name__] = time.perf_counter() - t1
     _FLUSH.clear()   # else its buffer counts in phase 6's peak memory
     print(f"[2] {len(rows)} kernel comparisons within tolerance "
-          f"({time.perf_counter() - t0:.1f} s); times in ms:")
+          f"({time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
+          + "); times in ms:")
     for r in rows:
         if "ms" in r:
-            print("    " + json.dumps(r))
+            print("    " + json.dumps({k: v for k, v in r.items()
+                                       if k != "spent_s"}))
     main_rows = [r for r in rows if not (r.get("lm") or "arch" in r)]
     for r in rows:
+        if r.get("train"):
+            print(f"[2] gossip_mix N={r['N']} D={r['D']} bf16 (the training "
+                  f"gossip of the embed leaf): call {r['ms']:.4f} ms, device "
+                  f"{r['device_ms']:.4f}, host {r['host_us']:.1f} us; plain "
+                  f"{r['plain_ms']:.4f}; torch.matmul bf16 call "
+                  f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f}); "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); seconds "
+                  "spent: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in r["spent_s"].items()))
+            continue
         if r["kernel"] == "gossip_mix" and "ms" in r:
             print(f"[2] gossip_mix N={r['N']} D={r['D']} {r['dtype']} (a per_event "
                   f"width): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
@@ -1845,6 +2100,8 @@ def main() -> int:
                   f"{r['host_us']:.1f} us per call; index_copy_ device (L2 cold) "
                   f"{r['library_device_ms']:.4f} ms, call {r['library_ms']:.4f} "
                   f"ms; bound {r['bound_ms']:.4f} ms")
+
+    lap("2")
 
     # -- 3. main path: bucketed DSGD-AAU at N=256 ---------------------------
     spec = paper_spec()
@@ -1881,6 +2138,8 @@ def main() -> int:
             "the loss did not fall on the main path")
     eps_sparse = res.total_events / wall
 
+    lap("3")
+
     # -- 4. dense path: sync DSGD at N=256 ----------------------------------
     tr = build_trainer(spec, "dsgd_sync", N_MAIN, 0, device=device)
     require(tr.mode == "scan", f"dense path took mode {tr.mode}")
@@ -1894,6 +2153,8 @@ def main() -> int:
           f"{res_d.history[-1].loss:.4f}")
     require(counts_dense["masked_gossip"] > 0,
             f"the dense path launched no masked_gossip: {counts_dense}")
+
+    lap("4")
 
     # -- 5. card vs CPU: DSGD-AAU at N=64 from the same W0 ------------------
     w0 = mlp2nn_init()(torch.Generator().manual_seed(0))
@@ -1925,38 +2186,62 @@ def main() -> int:
             "card and CPU totals differ")
     require(bool(torch.equal(tg._ptr.cpu(), tc._ptr)), "ptr differs")
 
+    lap("5")
+
     # -- 6. serve path: RecurrentGemma-2B at full width ---------------------
     served = serve_full_width(device, build_s)
+
+    lap("6")
 
     # -- 7. card vs CPU: the reduced RecurrentGemma -------------------------
     serve_card_vs_cpu(device)
 
+    lap("7")
+
     # -- 9-10. per_event at N=256; per_event vs scan and CPU at N=64 ---------
     per_event = per_event_paths(device)
+
+    lap("9-10")
 
     # -- 11. fused AD-PSGD and AGP at N=256; card vs CPU at N=16 --------------
     fused = fused_paths(device)
 
+    lap("11")
+
     # -- 12. gossip_mix_batched on a real EventBatch -------------------------
     batched = batched_on_events(device, per_event["trainer64"])
+
+    lap("12")
 
     # -- 13. the experiment CLI on one paper_figures cell at N=256 -----------
     xp = xp_cli(device, card=card)
 
+    lap("13")
+
     # -- 14. telemetry and trace, card vs CPU --------------------------------
     observed_card_vs_cpu(device)
+
+    lap("14")
 
     # -- 15. the cost of observing; the sanitizer ----------------------------
     observing = observing_cost(device)
 
+    lap("15")
+
     # -- 16. dense serve path: qwen3-8b at full width ------------------------
     served_dense = serve_full_width(device, build_s, DENSE_ARCH, tag="16")
+
+    lap("16")
 
     # -- 17. decentralized LM training: the 100m preset, the char-LM ---------
     trained = lm_training(device)
 
+    lap("17")
+
     # -- 18. card vs CPU: the LM example's tiny preset ---------------------------
     lm_card_vs_cpu(device)
+
+    lap("18")
 
     # -- 19-20. MoE serve path: grok-1-314b and arctic-480b, depth cut --------
     served_moe = {}
@@ -1969,8 +2254,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("19-20")
+
     # -- 21. card vs CPU: reduced grok-1 and arctic ----------------------------
     moe_card_vs_cpu(device)
+
+    lap("21")
 
     # -- 22-24. rwkv6-1.6b, musicgen-large, llava-next at full width and depth --
     served_mm = {}
@@ -1983,8 +2272,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("22-24")
+
     # -- 25. card vs CPU: reduced rwkv6, musicgen and llava ----------------------
     mm_card_vs_cpu(device)
+
+    lap("25")
+
+    # -- 26. training at full width and depth: recurrentgemma-2b -------------
+    trained_full = train_full_width(device)
+
+    lap("26")
+
+    # -- 27. card vs CPU: one train step of every assigned arch, reduced --------
+    train_card_vs_cpu(device)
+
+    lap("27")
 
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
@@ -2046,6 +2349,7 @@ def main() -> int:
               and all(r.get(k) == v for k, v in sel.items())][0]
         lm_at = [r for r in mine if r.get("lm") and "ms" in r]
         prefills = [r for r in mine if "arch" in r]
+        train_at = [r for r in mine if r.get("train")]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -2068,6 +2372,9 @@ def main() -> int:
             "lm": ({k: lm_at[0][k] for k in timed_keys} if lm_at else None),
             "launches_serve": {path: c.get(kname, 0)
                                for path, c in serve_paths.items()},
+            "launches_train": trained_full["launches"][kname],
+            "train": ({k: train_at[0][k] for k in ("dtype", "N", "D")
+                       + timed_keys} if train_at else None),
             "prefills": [{k: r[k] for k in ("arch", "prefix", "dtype", "B", "T",
                                             "H", "KV", "dh", "window")
                           + timed_keys if k in r} for r in prefills],
@@ -2116,6 +2423,14 @@ def main() -> int:
                  f"{pw['first_token_s']:.4f} s, decode {pw['decode_tok_s']:.1f} "
                  f"tok/s, peak {pw['peak_bytes'] / 2**30:.2f} GiB" if pw else
                  f"; decode state {m['state_bytes']:,} bytes"))
+    print(f"[8] training {ARCH} at full width and depth (4 workers, seq 4096, "
+          f"global batch 8): {trained_full['steady_s']:.3f} s/step, "
+          f"{trained_full['tokens_per_s']:.1f} tokens/s, peak "
+          f"{trained_full['peak_bytes'] / 2**30:.2f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in trained_full['losses'])}; "
+          f"total {time.perf_counter() - t_start:.1f} s")
+    print("[8] seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,4 @@
+"""Checkpoints of flat parameter dicts (the port of ``repro/checkpoint``)."""
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

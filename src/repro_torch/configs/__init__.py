@@ -18,4 +18,18 @@ from repro_torch.configs import (  # noqa: F401
     rwkv6_1_6b,
 )
 
-__all__ = ["ModelConfig", "get_config", "register"]
+# the ten archs the reference trains and serves (its ``configs.ASSIGNED``)
+ASSIGNED = (
+    "deepseek-67b",
+    "rwkv6-1.6b",
+    "minicpm-2b",
+    "musicgen-large",
+    "grok-1-314b",
+    "mistral-nemo-12b",
+    "arctic-480b",
+    "llava-next-mistral-7b",
+    "recurrentgemma-2b",
+    "qwen3-8b",
+)
+
+__all__ = ["ASSIGNED", "ModelConfig", "get_config", "register"]

@@ -151,13 +151,28 @@ def check_operands(what: str, floats: Mapping[str, torch.Tensor],
                    ) -> torch.device:
     """Validate a kernel launch's operands; return their common device.
 
-    Every operand must be a contiguous CUDA tensor on one device; the float
-    operands share one dtype the kernels take (float32 or bfloat16), the
-    index operands are int32.  Anything else raises -- a wrapper never
-    hands a tensor it cannot launch on to a plain version instead.
+    No kernel has a backward (nor has any Pallas kernel of the reference),
+    so an operand that autograd or ``torch.func`` tracks raises first, on
+    any device: the kernel's output would silently stop requiring grad, or
+    ``data_ptr`` would fail on a functorch wrapper.  Then every operand
+    must be a contiguous CUDA tensor on one device; the float operands
+    share one dtype the kernels take (float32 or bfloat16), the index
+    operands are int32.  Anything else raises -- a wrapper never hands a
+    tensor it cannot launch on to a plain version instead.
     """
     ints = ints or {}
     tensors = {**floats, **ints}
+    tracked = [k for k, t in tensors.items()
+               if torch._C._functorch.is_functorch_wrapped_tensor(t)
+               or (torch.is_grad_enabled() and t.requires_grad)]
+    if tracked:
+        raise RuntimeError(
+            f"{what}: operands {tracked} are differentiated (they require "
+            "grad or are torch.func wrappers), but the CUDA kernel has no "
+            "backward, as the reference's Pallas kernel has none; a "
+            "differentiable caller takes the training route (lm_loss: "
+            "blockwise_attention / _plain_attention and the chunked "
+            "rglru scan)")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs every operand on one "

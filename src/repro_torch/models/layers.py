@@ -22,11 +22,13 @@ Prefill attention goes through the ``swa_attention`` kernel wrapper (the
 reference's ``_plain_attention`` and ``blockwise_attention`` compute the
 same causal, windowed function).  A caller that differentiates through
 attention -- ``lm_loss``, as the reference's training forward, which never
-reaches its Pallas kernel -- asks for ``_plain_attention`` with
-``plain=True``.  Single-token decode against the rolling cache is plain
-PyTorch, as in the reference.  The reference's ``_SHARD_HINT`` is a TPU
-mesh hook for XLA's sharding propagation and is not ported, nor are (B, T)
-positions, which no ported family uses.
+reaches its Pallas kernel -- asks with ``plain=True`` for the reference's
+own choice: ``blockwise_attention`` past T = 2·512 (each q block
+rematerialised with ``remat=True``), ``_plain_attention`` below.
+Single-token decode against the rolling cache is plain PyTorch, as in the
+reference.  The reference's ``_SHARD_HINT`` is a TPU mesh hook for XLA's
+sharding propagation and is not ported, nor are (B, T) positions, which no
+ported family uses.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels.swa_attention import swa_attention
@@ -74,14 +77,60 @@ def const(shape: Tuple[int, ...], value: float, dtype: torch.dtype,
                         requires_grad=False)
 
 
+class _ProductF32(torch.autograd.Function):
+    """a @ b of bf16 operands on the card, float32 out (cuBLAS's
+    ``out_dtype``: bf16 products summed in float32, never rounded to bf16),
+    for 2-D (``mm``) or batched 3-D (``bmm``) operands.  PyTorch has no
+    derivative for ``out_dtype``, so the backward is written here, as the
+    reference's transpose rule computes it: the float32 cotangent times
+    the other bf16 operand, summed in float32 and rounded once to the
+    operand's bf16.  The cotangent enters the tensor cores split into two
+    bf16 parts (hi + lo, 16 of its 24 bits), so the product is float32-
+    accurate where a single bf16 rounding of it would not be."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        hi = g.to(a.dtype)
+        lo = (g - hi.to(g.dtype)).to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.transpose(-1, -2)
+            da = (_product(hi, bt) + _product(lo, bt)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            at = a.transpose(-1, -2)
+            db = (_product(at, hi) + _product(at, lo)).to(b.dtype)
+        return da, db
+
+
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 a @ b (2-D or batched) with cuBLAS's float32 output."""
+    op = torch.mm if a.dim() == 2 else torch.bmm
+    return op(a, b, out_dtype=torch.float32)
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_product``, through ``_ProductF32`` only where autograd records
+    it (an operand requires grad), so serving pays no autograd node."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ProductF32.apply(a, b)
+    return _product(a, b)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated and returned in float32 (the reference's
     ``preferred_element_type=float32`` without the cast back).  A bf16
-    product on the card takes cuBLAS's float32 output directly; elsewhere
-    the operands are widened to float32, which gives the same products."""
+    product on the card takes cuBLAS's float32 output directly
+    (``_product_f32``, differentiable); elsewhere the operands are widened
+    to float32, which gives the same products."""
     if x.dtype == w.dtype == torch.bfloat16 and x.is_cuda:
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        return _product_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], -1)
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
@@ -90,7 +139,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32, as ``matmul_f32`` (the reference's
     ``einsum(..., preferred_element_type=float32)``)."""
     if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _product_f32(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
@@ -170,6 +219,95 @@ def _plain_attention(q, k, v, positions_q, positions_k, window):
     return out.reshape(B, Tq, H, dh).to(q.dtype)
 
 
+def rematerialise(fn, *args):
+    """``fn(*args)`` under non-reentrant ``torch.utils.checkpoint``: the
+    backward recomputes ``fn``'s intermediates instead of keeping them (the
+    reference's ``jax.checkpoint``).  Reentrant checkpoint would drop the
+    gradients of weights that ``fn`` reads through closures, so it is never
+    used.  ``torch.func`` transforms cannot carry checkpoint's saved-tensor
+    hooks: a rematerialised function is differentiated with
+    ``torch.autograd.grad``."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
+    """(B, H, bq, bk) float32 scores of (B, bq, H, dh) and (B, bk, H, dh)
+    blocks (``bmm_f32``: bf16 products summed in float32 on the card, as
+    the reference's ``preferred_element_type``)."""
+    B, bq, H, dh = qb.shape
+    q = qb.transpose(1, 2).reshape(B * H, bq, dh)
+    k = kb.permute(0, 2, 3, 1).reshape(B * H, dh, -1)
+    return bmm_f32(q, k).view(B, H, bq, -1)
+
+
+def blockwise_attention(q, k, v, *, window: Optional[int] = None,
+                        block_q: int = 512, block_k: int = 512,
+                        remat: bool = False):
+    """Flash-style causal self-attention in plain PyTorch, differentiable
+    (the reference's ``blockwise_attention``, its training path past T =
+    2·block): never materialises the (T, T) scores.
+
+    T is padded to a block multiple (padded keys sit at future positions
+    the causal mask drops; padded query rows are cut at the end).  Each q
+    block visits only the k blocks it can see -- up to the causal frontier
+    in ascending order, or, with a window, the band of
+    ``1 + ceil((window + block_q − 1) / block_k)`` blocks from the diagonal
+    down, as the reference's scans visit them -- with the online softmax in
+    float32 (masked scores −1e30, the sum floored at 1e-30).  With
+    ``remat`` each q block runs under ``rematerialise`` (the reference
+    always checkpoints it), so the backward recomputes its scores instead
+    of keeping O(T²) of them; without it the values are the same and the
+    function stays differentiable by ``torch.func``.  GQA repeats each k/v
+    block to the H heads.
+    q: (B, T, H, dh); k, v: (B, T, KV, dh).
+    """
+    B, T0, H, dh = q.shape
+    G = H // k.shape[2]
+    lcm = math.lcm(block_q, block_k)
+    T = -(-T0 // lcm) * lcm
+    if T != T0:
+        pad = (0, 0, 0, 0, 0, T - T0)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    scale = 1.0 / math.sqrt(dh)
+    n_band = (None if window is None
+              else 1 + math.ceil((window + block_q - 1) / block_k))
+    f32 = torch.float32
+
+    def q_block(qi: int, qb: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        pos_q = qi * block_q + torch.arange(block_q, device=q.device)
+        hi = (qi * block_q + block_q - 1) // block_k      # diagonal block
+        kjs = (range(hi + 1) if n_band is None
+               else [hi - off for off in range(n_band) if hi - off >= 0])
+        acc = m = l = None
+        for kj in kjs:
+            kb = k[:, kj * block_k:(kj + 1) * block_k].repeat_interleave(G, 2)
+            vb = v[:, kj * block_k:(kj + 1) * block_k].repeat_interleave(G, 2)
+            pos_k = kj * block_k + torch.arange(block_k, device=q.device)
+            s = _scores(qb, kb) * scale
+            mask = pos_k[None, :] <= pos_q[:, None]
+            if window is not None:
+                mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
+            s = s.masked_fill(~mask, -1e30)
+            if m is None:    # the reference's carries: acc 0, m −1e30, l 0
+                m = torch.full(s.shape[:-1], -1e30, dtype=f32, device=s.device)
+                l = s.new_zeros(s.shape[:-1])
+                acc = s.new_zeros(s.shape[:-1] + (dh,))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vb.transpose(1, 2).to(f32)
+            m = m_new
+        return acc / torch.clamp(l[..., None], min=1e-30)   # (B, H, bq, dh)
+
+    run = (lambda *a: rematerialise(q_block, *a)) if remat else q_block
+    outs = [run(qi, q[:, qi * block_q:(qi + 1) * block_q], k, v)
+            for qi in range(T // block_q)]
+    out = torch.cat(outs, dim=2).transpose(1, 2)           # (B, T, H, dh)
+    return out[:, :T0].to(q.dtype)
+
+
 @dataclasses.dataclass
 class KVCache:
     """Rolling KV cache: ``size`` slots; absolute positions tracked per slot.
@@ -209,14 +347,17 @@ def apply_attention(p: Attention, cfg, x, positions, *,
                     cache: Optional[KVCache] = None,
                     window: Optional[int] = None,
                     build_cache: Optional[int] = None,
-                    plain: bool = False):
+                    plain: bool = False, block_size: int = 512,
+                    remat: bool = False):
     """Self-attention forward.
 
     Prefill: ``cache is None`` -- causal attention over the whole sequence
     through the ``swa_attention`` wrapper (exact for any run of consecutive
-    positions), or through ``_plain_attention`` with ``plain=True`` (the
-    differentiable training forward); with ``build_cache=size`` also
-    returns a rolling KVCache of the last ``size`` positions.
+    positions), or, with ``plain=True`` (the differentiable training
+    forward), as the reference computes it: ``blockwise_attention`` when
+    T > 2·block_size (its q blocks rematerialised with ``remat``), else
+    ``_plain_attention``; with ``build_cache=size`` also returns a rolling
+    KVCache of the last ``size`` positions.
     Decode: ``cache`` given and T == 1 -- writes the token at slot
     ``positions[0] % size`` (in place) and attends over the cache.
     Returns (out, cache).
@@ -233,7 +374,11 @@ def apply_attention(p: Attention, cfg, x, positions, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if plain:
+        if plain and T > 2 * block_size:
+            out = blockwise_attention(q, k, v, window=window,
+                                      block_q=block_size, block_k=block_size,
+                                      remat=remat)
+        elif plain:
             out = _plain_attention(q, k, v, positions, positions, window)
         else:
             out = swa_attention(q, k, v, window=window)

@@ -7,10 +7,15 @@ The port of ``repro/models/rglru.py``.  Real-Gated Linear Recurrent Unit:
     a_t = a^{c·r_t},  a = σ(Λ)        per-channel data-gated decay (c = 8)
     h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
 
-The recurrence is a diagonal first-order linear scan, computed by the
-``linear_scan`` kernel (the reference evaluates it with a chunked
-``associative_scan``; both compute the same function).  The block wraps the
-RG-LRU with in/out projections, a short causal conv and a GeLU gate branch.
+The recurrence is a diagonal first-order linear scan.  Serving computes it
+with the ``linear_scan`` kernel; the differentiable training forward
+(``apply_rglru_block(..., train_scan=True)``, which ``lm_loss`` takes)
+computes it as the reference does, with ``rglru_train_scan``: log-depth
+scans over chunks of 256 steps, each rematerialised when the caller asks
+(the kernel has no backward, and the reference's training path never
+reaches its Pallas kernel either).
+Both compute the same function.  The block wraps the RG-LRU with in/out
+projections, a short causal conv and a GeLU gate branch.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.linear_scan import linear_scan
-from repro_torch.models.layers import const, weight
+from repro_torch.models.layers import const, rematerialise, weight
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -72,14 +77,67 @@ def _causal_conv(x, kernel, bias, carry: Optional[torch.Tensor] = None):
 
 
 def rglru_scan(a: torch.Tensor, x_in: torch.Tensor) -> torch.Tensor:
-    """Diagonal linear recurrence h_t = a_t·h_{t-1} + x_t, h_0 = 0.
-    a, x_in: (B, T, W) float32."""
+    """Diagonal linear recurrence h_t = a_t·h_{t-1} + x_t, h_0 = 0, through
+    the ``linear_scan`` kernel (serving).  a, x_in: (B, T, W) float32."""
     return linear_scan(a, x_in)
 
 
+def _log_depth_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + x_t over axis 1 in ⌈log2 T⌉ Hillis–Steele steps:
+    at offset d every position t ≥ d folds in the prefix ending at t − d.
+    The prefix is shifted in by padding (x with 0, a with 1), so positions
+    t < d keep x_t + a_t·0 and a_t·1, exactly their values."""
+    T = a.shape[1]
+    d = 1
+    while d < T:
+        x = x + a * F.pad(x[:, :-d], (0, 0, d, 0))
+        if 2 * d < T:
+            a = a * F.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+        d *= 2
+    return x
+
+
+def _scan_chunk(ac: torch.Tensor, xc: torch.Tensor,
+                h0: torch.Tensor) -> torch.Tensor:
+    """One chunk's states, the carried boundary state h0 folded into every
+    step as (∏_{s≤t} a_s)·h0, the product as exp(cumsum(log(clip(a,
+    1e-30)))) (the reference's ``one_chunk``)."""
+    h = _log_depth_scan(ac, xc)
+    cum = torch.exp(torch.cumsum(torch.log(torch.clamp(ac, min=1e-30)), dim=1))
+    return h + cum * h0[:, None, :]
+
+
+def rglru_train_scan(a: torch.Tensor, x_in: torch.Tensor,
+                     chunk: int = 256, remat: bool = False) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + x_t, h_0 = 0, differentiable: the reference's
+    training ``rglru_scan``.  One log-depth scan over the whole sequence
+    when T ≤ chunk or T % chunk ≠ 0; else chunk after chunk, each a
+    log-depth scan carrying only the boundary state.  With ``remat`` each
+    chunk runs under ``rematerialise`` (the reference always checkpoints
+    it), so the backward keeps one chunk's tree at a time; without it the
+    values are the same and ``torch.func`` can differentiate it.  a, x_in:
+    (B, T, W) float32."""
+    B, T, W = a.shape
+    if T <= chunk or T % chunk:
+        return _log_depth_scan(a, x_in)
+    h0 = a.new_zeros((B, W))
+    run = ((lambda *args: rematerialise(_scan_chunk, *args)) if remat
+           else _scan_chunk)
+    hs = []
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        h = run(a[:, sl], x_in[:, sl], h0)
+        hs.append(h)
+        h0 = h[:, -1]
+    return torch.cat(hs, dim=1)
+
+
 def apply_rglru_block(p: RGLRUBlock, cfg, x: torch.Tensor,
-                      state: Optional[RGLRUState] = None):
-    """x: (B, T, D) -> (out, new_state)."""
+                      state: Optional[RGLRUState] = None,
+                      train_scan: bool = False, remat: bool = False):
+    """x: (B, T, D) -> (out, new_state).  ``train_scan`` runs the
+    recurrence through ``rglru_train_scan`` (differentiable; its chunks
+    rematerialised with ``remat``) instead of the ``linear_scan`` kernel."""
     f32 = torch.float32
     gate = F.gelu((x @ p.w_gate_branch).to(f32), approximate="tanh")
     u = x @ p.w_in
@@ -94,7 +152,8 @@ def apply_rglru_block(p: RGLRUBlock, cfg, x: torch.Tensor,
     if x.shape[1] == 1 and state is not None:
         h = (a[:, 0] * state.h + gated_in[:, 0])[:, None]
     else:
-        h = rglru_scan(a, gated_in)
+        h = (rglru_train_scan(a, gated_in, remat=remat) if train_scan
+             else rglru_scan(a, gated_in))
         if state is not None:  # prefill continuing from a state
             # fold h0 into every step: h_t += (prod_{s<=t} a_s)·h0
             cum = torch.exp(torch.cumsum(log_a, dim=1))

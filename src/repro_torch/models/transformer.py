@@ -29,13 +29,14 @@ through a view, from the module or from a flat ``dict[str, Tensor]``
 Entry points share one layer runner:
   * ``forward``     — full-sequence logits (B, T, V), with the MoE aux loss
     on request (``with_aux``)
-  * ``lm_loss``     — next-token cross-entropy (dense, moe: plus
+  * ``lm_loss``     — next-token cross-entropy of every family (moe: plus
     ``aux_weight`` times the MoE load-balance loss), optionally with the
-    unembedding and the softmax in sequence chunks (``logit_chunk``);
-    differentiable with ``torch.func``: its attention is
-    ``_plain_attention`` (``plain_attention=True``), as the reference's
-    training forward computes attention with jnp functions and never
-    reaches its Pallas kernel
+    unembedding and the softmax in sequence chunks (``logit_chunk``) and
+    each layer and CE chunk rematerialised (``remat``); differentiable,
+    as the reference's training forward, which never reaches a Pallas
+    kernel: its attention is ``_plain_attention`` or, past T = 1024,
+    ``blockwise_attention``, and its RG-LRU recurrence the chunked
+    ``rglru_train_scan``
   * ``prefill``     — full sequence; last-token logits (B, V) + decode state
   * ``decode_step`` — one token against the decode state
 
@@ -43,7 +44,11 @@ Decode state is a tuple with one entry per layer: ``RGLRUState`` for a
 recurrent layer, ``RWKVState`` for an RWKV layer (its size independent of
 the sequence's length), a rolling ``KVCache`` for an attention layer.  The
 weights do not require gradients: training differentiates ``lm_loss``
-with respect to a flat parameter dict (``torch.func.grad``).
+with respect to a flat parameter dict (``torch.autograd.grad`` in
+``launch/steps.py``; ``torch.func.grad`` in the decentralized trainer,
+which cannot carry the rematerialisation (``layers.rematerialise``), so
+there ``remat`` stays off, which leaves every step of the forward
+transformable at any length).
 """
 from __future__ import annotations
 
@@ -65,11 +70,11 @@ FAMILIES = ("hybrid", "dense", "moe", "ssm", "audio", "vlm")
 STACKED = ("dense", "moe", "ssm", "audio", "vlm")   # homogeneous, layer-stacked
 
 
-def _require_family(cfg: ModelConfig, families=FAMILIES) -> None:
-    if cfg.family not in families:
+def _require_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}): this runs "
-            f"{', '.join(families)}")
+            f"{', '.join(FAMILIES)}")
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -223,14 +228,13 @@ def _stacked_layers(flat: Dict[str, torch.Tensor], n_layers: int):
 
 def _weights(model: Params, cfg: ModelConfig):
     """What the layer runner reads: the hybrid model's modules, or a view of
-    a stacked model's flat parameters (from the module or a dict)."""
+    the flat parameters (a stacked model's, from the module or a dict; a
+    hybrid model's dict)."""
     _require_family(cfg)
     if cfg.family in STACKED:
         flat = model if isinstance(model, dict) else flat_params(model)
         return _View(flat)
-    if isinstance(model, dict):
-        raise TypeError("the hybrid family runs on its LM module")
-    return model
+    return _View(model) if isinstance(model, dict) else model
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +242,11 @@ def _weights(model: Params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _apply_attn_layer(p: AttnLayer, cfg, x, positions, state, window,
-                      build_cache=None, plain_attention=False):
+                      build_cache=None, train=False, remat=False):
     h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
     attn_out, new_state = L.apply_attention(
         p.attn, cfg, h, positions, cache=state, window=window,
-        build_cache=build_cache, plain=plain_attention)
+        build_cache=build_cache, plain=train, remat=remat)
     x = x + attn_out
     h = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     if cfg.family == "moe":
@@ -261,17 +265,19 @@ def _apply_rwkv_layer(p: RWKVLayer, cfg, x, state: Optional[RW.RWKVState]):
     return x + cm_out, RW.RWKVState(shift_tm=last_tm, shift_cm=last_cm, S=S_new)
 
 
-def _apply_rec_layer(p: RecLayer, cfg, x, state):
+def _apply_rec_layer(p: RecLayer, cfg, x, state, train_scan=False,
+                     remat=False):
     h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
-    rec_out, new_state = RG.apply_rglru_block(p.rec, cfg, h, state)
+    rec_out, new_state = RG.apply_rglru_block(p.rec, cfg, h, state, train_scan,
+                                              remat)
     x = x + rec_out
     h = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     return x + L.apply_mlp(p.ffn, h), new_state
 
 
 def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
-                build_cache: Optional[int] = None,
-                plain_attention: bool = False):
+                build_cache: Optional[int] = None, train: bool = False,
+                remat: bool = False):
     """Run all blocks of ``m`` (from ``_weights``).  Returns (x, aux,
     new_states_or_None); aux is the sum of the MoE layers' load-balance
     losses (float32 0 for the other families).
@@ -279,15 +285,23 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
     states given       → decode (per-layer state in/out)
     build_cache = size → prefill: construct decode states
     neither            → plain forward
-    ``plain_attention`` computes full-sequence attention with
-    ``_plain_attention`` instead of the ``swa_attention`` kernel (the
-    differentiable training forward of ``lm_loss``).
+    ``train`` is the differentiable training forward of ``lm_loss``: the
+    reference's attention (``_plain_attention``, ``blockwise_attention``
+    past T = 1024) instead of the ``swa_attention`` kernel, and the
+    chunked ``rglru_train_scan`` instead of the ``linear_scan`` kernel.
+    ``remat`` runs each layer under ``layers.rematerialise`` (the
+    reference's ``jax.checkpoint`` per layer), and within it each of
+    blockwise attention's q blocks and each chunk of the scan: the backward
+    keeps the layers' inputs and recomputes the rest.
     """
     window = cfg.attn_window
     collect = (states is not None) or (build_cache is not None)
     pattern = block_pattern(cfg)
     if cfg.family in STACKED:
         layer_weights = _stacked_layers(m._flat, cfg.n_layers)
+    elif isinstance(m, _View):
+        layer_weights = [_View(m._flat, f"layers.{i}.")
+                         for i in range(cfg.n_layers)]
     else:
         layer_weights = m.layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -298,14 +312,17 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
             bc = build_cache if states is None else None
             if bc is not None and window:
                 bc = min(bc, window)
-            x, st2, a = _apply_attn_layer(lp, cfg, x, positions, st, window,
-                                          bc, plain_attention)
-            if a is not None:
-                aux = aux + a
+            fn = (lambda x, lp=lp, st=st, bc=bc: _apply_attn_layer(
+                lp, cfg, x, positions, st, window, bc, train, remat))
         elif pt == "rwkv":
-            x, st2 = _apply_rwkv_layer(lp, cfg, x, st)
+            fn = (lambda x, lp=lp, st=st:
+                  _apply_rwkv_layer(lp, cfg, x, st) + (None,))
         else:
-            x, st2 = _apply_rec_layer(lp, cfg, x, st)
+            fn = (lambda x, lp=lp, st=st:
+                  _apply_rec_layer(lp, cfg, x, st, train, remat) + (None,))
+        x, st2, a = L.rematerialise(fn, x) if remat else fn(x)
+        if a is not None:
+            aux = aux + a
         new_states.append(st2)
     return x, aux, (tuple(new_states) if collect else None)
 
@@ -352,24 +369,28 @@ def forward(model: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def lm_loss(params: Params, cfg: ModelConfig, batch,
             logit_chunk: Optional[int] = None,
-            aux_weight: float = 0.01) -> torch.Tensor:
-    """Next-token cross-entropy of a layer-stacked model (float32 scalar),
-    plus ``aux_weight`` times the MoE load-balance loss, as the reference.
+            aux_weight: float = 0.01, remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar) of any family, plus
+    ``aux_weight`` times the MoE load-balance loss, as the reference.
 
     ``params`` is the ``LM`` or one worker's flat parameter dict; batch:
     {"tokens": (B, T) int, ["prefix": (B, P, D)]}.  Hidden state t predicts
-    token t + 1 over the text positions (the prefix is stripped first).  With
-    ``logit_chunk`` the unembedding and the softmax run over sequence
+    token t + 1 over the text positions (the prefix is stripped first).  The
+    forward is the differentiable training one (``_run_layers(train=True)``).
+    With ``logit_chunk`` the unembedding and the softmax run over sequence
     chunks of that many positions, summed in the reference's order (full
-    chunks, then the remainder); the reference also rematerialises each
-    chunk in its backward pass, which autograd here does not, so a chunk's
-    logits stay alive for the backward.
+    chunks, then the remainder).  ``remat`` rematerialises each layer (and
+    in it blockwise attention's q blocks and the scan's chunks) and each CE
+    chunk in the backward pass (``layers.rematerialise``), as the
+    reference's ``remat=True`` and its checkpointed CE chunks: the backward
+    keeps the layers' inputs, not their intermediates, nor any chunk's
+    logits.  Without ``remat`` nothing is checkpointed, so ``torch.func``
+    can differentiate it at any length.
     """
-    _require_family(cfg, STACKED)
     m = _weights(params, cfg)
     tokens = batch["tokens"]
     x, positions, n_prefix = _inputs(m, cfg, tokens, batch.get("prefix"))
-    x, aux, _ = _run_layers(m, cfg, x, positions, plain_attention=True)
+    x, aux, _ = _run_layers(m, cfg, x, positions, train=True, remat=remat)
     x = L.rmsnorm(m.final_norm, x, cfg.norm_eps)
     x = x[:, n_prefix:-1]            # shift: predict token t+1 from hidden t
     targets = tokens[:, 1:].long()
@@ -381,8 +402,9 @@ def lm_loss(params: Params, cfg: ModelConfig, batch,
     if logit_chunk and x.shape[1] > logit_chunk:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in range(0, x.shape[1], logit_chunk):
-            b = a + logit_chunk
-            total = total + ce(x[:, a:b], targets[:, a:b])
+            xc, tc = x[:, a:a + logit_chunk], targets[:, a:a + logit_chunk]
+            total = total + (L.rematerialise(ce, xc, tc) if remat
+                             else ce(xc, tc))
     else:
         total = ce(x, targets)
     return total / (targets.shape[0] * targets.shape[1]) + aux_weight * aux

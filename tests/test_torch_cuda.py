@@ -836,3 +836,92 @@ def test_cli_on_the_card_names_the_card(cuda, tmp_path):
     assert meta["device"] == torch.cuda.get_device_name(0)
     assert meta["power_limit"].endswith("W")
     assert meta["torch"] == torch.__version__
+
+
+# -- the production training launcher ----------------------------------------
+
+def test_wrappers_refuse_autograd_on_the_card(cuda):
+    """On CUDA tensors too: an operand that requires grad raises before any
+    launch (the launch counter stays), and under no_grad the kernel runs."""
+    W = torch.randn(4, 1000, device=cuda, requires_grad=True)
+    P = torch.rand(4, 4, device=cuda)
+    before = gossip_ops.gossip_mix_cuda.launches
+    with pytest.raises(RuntimeError, match="gossip_mix: .*no backward"):
+        gossip_ops.gossip_mix_cuda(W, P)
+    a = torch.rand(1, 64, 128, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="linear_scan: .*no backward"):
+        scan_ops.linear_scan_cuda(a, a.detach())
+    q = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="swa_attention: .*no backward"):
+        swa_ops.swa_attention_cuda(q, q.detach(), q.detach(), window=8)
+    assert gossip_ops.gossip_mix_cuda.launches == before
+    with torch.no_grad():
+        _close(gossip_ops.gossip_mix_cuda(W, P),
+               gossip_ops.gossip_mix_plain(W, P), torch.float32)
+
+
+def test_gossip_mix_at_the_training_shape(cuda):
+    """N = 4 workers in bf16, as the launcher's ring mixes every leaf
+    (here 8 M columns; chip_smoke.py times the 655 M-column embed leaf)."""
+    from repro_torch.launch.steps import default_gossip_weights, ring_matrix
+    g = torch.Generator(device=cuda).manual_seed(4)
+    W = torch.randn(4, 1 << 23, generator=g, device=cuda, dtype=torch.bfloat16)
+    P = ring_matrix(4, default_gossip_weights(4, False)).to(cuda, torch.bfloat16)
+    _close(gossip_ops.gossip_mix_cuda(W, P), gossip_ops.gossip_mix_plain(W, P),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch,T_len", [("recurrentgemma-2b", 64),
+                                        ("recurrentgemma-2b", 1280),
+                                        ("rwkv6-1.6b", 64),
+                                        ("llava-next-mistral-7b", 64)])
+def test_train_step_card_vs_cpu(cuda, arch, T_len):
+    """One ``build_train_step`` step at N = 2 from one float32 W0: W within
+    1e-4 and the loss within 1e-5, one ``gossip_mix`` launch a leaf."""
+    from repro_torch.launch import steps as ST
+    cfg = get_config(arch).reduced()
+    W0 = ST.stacked_init(cfg, 2, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 2, T_len)).astype(np.int32))
+    gw = ST.default_gossip_weights(2, False)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        batch = {"tokens": toks.to(dev)}
+        if cfg.frontend:
+            batch["prefix"] = torch.zeros(
+                (2, 2, cfg.n_prefix_tokens, cfg.d_model), device=dev)
+        W = {k: v.to(dev, copy=True) for k, v in W0.items()}
+        before = gossip_ops.gossip_mix_cuda.launches
+        res[dev.type] = ST.build_train_step(cfg, 2, logit_chunk=16,
+                                            device=dev)(W, batch, 0.05, gw)
+        launched = gossip_ops.gossip_mix_cuda.launches - before
+        assert launched == (len(W) if dev.type == "cuda" else 0)
+    (Wg, lg), (Wc, lc) = res["cuda"], res["cpu"]
+    assert abs(float(lg) - float(lc)) <= 1e-5
+    for k in Wc:
+        torch.testing.assert_close(Wg[k].cpu(), Wc[k], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((64, 96), (96, 40)),
+                                             ((3, 64, 96), (3, 96, 40))])
+def test_bf16_float32_products_are_differentiable(cuda, shape_a, shape_b):
+    """``matmul_f32`` / ``bmm_f32`` of bf16 operands on the card (cuBLAS's
+    float32 output) against the float32 product of the same values: the
+    value within 1e-5 relative, the gradients within the bf16 bound."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(shape_a, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(shape_b, generator=g, device=cuda).to(torch.bfloat16)
+    a.requires_grad_()
+    b.requires_grad_()
+    fn = L.matmul_f32 if a.dim() == 2 else L.bmm_f32
+    y = fn(a, b)
+    ref = a.float() @ b.float()
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, ref, atol=1e-4, rtol=1e-5)
+    w = torch.randn(y.shape, generator=g, device=cuda)
+    got = torch.autograd.grad((y * w).sum(), (a, b))
+    want = torch.autograd.grad((ref * w).sum(), (a, b))
+    for x, r in zip(got, want):
+        assert x.dtype == torch.bfloat16
+        torch.testing.assert_close(x.float(), r.float(), **TOL[torch.bfloat16])

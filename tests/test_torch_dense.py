@@ -147,8 +147,8 @@ def test_lm_loss_matches_the_reference(arch, logit_chunk):
 
 
 def test_lm_loss_past_the_reference_blockwise_switch():
-    """T = 1100: the reference's attention turns blockwise (T > 1024) while
-    the port's training forward stays ``_plain_attention``."""
+    """T = 1100: the training forward's attention turns blockwise
+    (T > 1024) in both packages."""
     cfg, jcfg, model, params = _models("qwen3-8b")
     toks = _tokens(6, cfg.vocab_size, 1, 1100)
     ref = JT.lm_loss(params, jcfg, {"tokens": jnp.asarray(toks)},

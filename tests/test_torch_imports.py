@@ -44,6 +44,10 @@ def test_every_module_imports_without_jax():
     assert {"repro_torch.models.rwkv", "repro_torch.models.multimodal",
             "repro_torch.configs.rwkv6_1_6b", "repro_torch.configs.musicgen_large",
             "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
+    assert {"repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer", "repro_torch.launch.mesh",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
