@@ -128,6 +128,19 @@ non-zero, printing no result, when there is none or when any phase fails:
     W0 for each of the ten assigned archs reduced (T = 64), and reduced
     recurrentgemma-2b and minicpm-2b at T = 1280 (blockwise attention, the
     chunked RG-LRU scan): W within 1e-4, the loss within 1e-5;
+28. the stacked multi-pod step: one step of ``launch/train.py:main`` for
+    recurrentgemma-2b at full width and depth with ``--workers 4
+    --multipod`` (2 pods × 2 workers, seq 1024, global batch 4), counters
+    zeroed just before and read just after (``gossip_mix`` once per leaf,
+    no other kernel); every leaf the two-pod matrix's mix of its workers
+    (``ring_err`` ≤ 1) and the workers' mean kept within the bf16 bound;
+29. the sharded step on NCCL at world size 1 (a ``FileStore``, ``cuda``):
+    recurrentgemma-2b at full width, 1 worker, seq 4096, batch 2, one step
+    of ``build_sharded_train_step`` (no kernel launched) against one step of
+    the stacked ``build_train_step`` at ``--workers 1``: W within the bf16
+    bound, the loss within 1e-5 relative, bit-equality reported; then, in
+    a subprocess, the dry run of qwen3-8b × train_4k on the 16×16 mesh of
+    a fake 256-rank group, its record printed;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 
@@ -214,6 +227,15 @@ TRAIN_MIX_REPS = 5
 # phase 27: reduced archs at the demo length, and at T = 1280 where
 # attention turns blockwise (T > 1024) and the RG-LRU scan chunked
 TRAIN_LONG = (("recurrentgemma-2b", 1280), ("minicpm-2b", 1280))
+# phase 28: one stacked step with the inter-pod edge, 2 pods × 2 workers
+# (step 0 of default_rng(0) is a ring round, draw 0.637)
+POD_ARGV = ("--arch", ARCH, "--workers", "4", "--multipod", "--seq", "1024",
+            "--global-batch", "4", "--steps", "1")
+# phase 29: the sharded step on NCCL at world size 1 against the stacked one
+SHARDED_SEQ, SHARDED_BATCH = 4096, 2
+# the dry run's pair after phase 29, in a subprocess (the fake group cannot
+# share a process with NCCL) and its time limit
+DRYRUN_PAIR, DRYRUN_TIMEOUT = ("qwen3-8b", "train_4k"), 300
 MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
@@ -2016,6 +2038,299 @@ def train_card_vs_cpu(device) -> None:
                                          for k, (e, l, m) in worst.items()))
 
 
+# ---------------------------------------------------------------------------
+# phases 28-29: the inter-pod edge, the sharded step, the dry run
+# ---------------------------------------------------------------------------
+
+def train_multipod(device) -> dict:
+    """Phase 28: one step of ``launch/train.py:main`` for recurrentgemma-2b
+    at full width and depth, 4 workers stacked as 2 pods × 2, seq 1024,
+    global batch 4.  Counters zeroed just before and read just after:
+    ``gossip_mix`` once per leaf, no other kernel.  Every leaf's output is
+    the two-pod matrix's mix of its pre-gossip workers (``ring_err`` ≤ 1,
+    phase 26's bound) and keeps the workers' mean within the bf16 bound."""
+    import math
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+
+    P = ST.ring_matrix(4, ST.default_gossip_weights(2, True), pods=2).to(
+        device, torch.bfloat16)
+    mixed, drift, losses, secs, leaves = {}, {}, [], [], []
+
+    def on_mix(k, key, before, after):
+        tol = TOL["bfloat16"]
+        worst = mix = 0.0
+        for b, a in _column_chunks(before, after):
+            mb, ma = b.float().mean(0), a.float().mean(0)
+            worst = max(worst, float(((ma - mb).abs()
+                                      - tol["rtol"] * mb.abs()).max()))
+            mix = max(mix, ring_err(b, a, P))
+        drift[key], mixed[key] = worst, mix
+
+    def on_step(k, loss, seconds, W):
+        losses.append(loss)
+        secs.append(seconds)
+        leaves.append(len(W))
+        bad = [key for key, w in W.items() if not bool(torch.isfinite(w).all())]
+        require(math.isfinite(loss) and not bad,
+                f"phase 28: loss {loss}, non-finite leaves {bad[:4]}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = train.main(list(POD_ARGV), on_mix=on_mix, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    require(rc == 0 and len(losses) == 1, f"phase 28 rc {rc}")
+    n_leaves = leaves[0]
+    require(counts == dict({k: 0 for k in counts}, gossip_mix=n_leaves),
+            f"phase 28 launched {counts} for {n_leaves} leaves")
+    require(len(mixed) == n_leaves and max(mixed.values()) <= 1.0,
+            "a leaf is not the two-pod mix of its workers: "
+            f"{sorted(mixed.items(), key=lambda kv: -kv[1])[:3]}")
+    require(max(drift.values()) <= TOL["bfloat16"]["atol"],
+            f"the pod gossip moved the workers' mean: {max(drift.values())}")
+    out = dict(loss=losses[0], seconds=secs[0], wall=wall, peak_bytes=peak,
+               launches=counts, leaves=n_leaves,
+               ring_err=max(mixed.values()), drift=max(drift.values()))
+    print(f"[28] {ARCH} one stacked step with the inter-pod edge "
+          f"({' '.join(POD_ARGV)}): loss {losses[0]:.4f}, step "
+          f"{secs[0]:.3f} s, {wall:.1f} s in main, peak {peak / 2**30:.2f} "
+          f"GiB; launches {counts} ({n_leaves} leaves); worst ring_err "
+          f"{out['ring_err']:.3f} (≤ 1), worker-mean drift over the bf16 "
+          f"bound {out['drift']:.3e}; card {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_equal(before: dict, sharded: dict, stacked: dict,
+                units: int = 1) -> dict:
+    """The sharded and the stacked path's W after a step from ``before``
+    (the stacked path's W before it), element by element.  ``over`` counts
+    elements further apart than ``units`` × (one unit in the last place of
+    the leaf's dtype + 1 % of the leaf's largest change in the step): well
+    below one step's change, so that a step that skipped SGD or applied
+    another update shows in the elements it moved most, while a rounding of
+    the leaf's dtype or the order of a sum (the CPU's embedding gradient
+    accumulates in a varying order) does not.  ``differ`` counts elements
+    not bit for bit equal, ``moved`` those the stacked step moved by more
+    than one unit, of ``total``."""
+    import torch
+    out = dict(over=0, differ=0, moved=0, total=0)
+    for k, b in stacked.items():
+        a, w0 = sharded[k].float(), before[k].float()
+        eps = torch.finfo(b.dtype).eps
+        b = b.float()
+        step = (b - w0).abs()
+        limit = units * (eps * torch.maximum(a.abs(), b.abs())
+                         + 0.01 * step.max())
+        out["over"] += int(((a - b).abs() > limit).sum())
+        out["differ"] += int((a != b).sum())
+        out["moved"] += int((step > eps * torch.maximum(b.abs(), w0.abs())).sum())
+        out["total"] += b.numel()
+    return out
+
+
+def train_sharded(device, scratch: Path) -> dict:
+    """Phase 29: ``build_sharded_train_step`` on NCCL at world size 1 (a
+    ``FileStore`` under ``scratch``), recurrentgemma-2b at full width, 1
+    worker, seq 4096, batch 2, one step (no kernel launched) against one
+    step of the stacked ``build_train_step`` at N = 1 from the same W0 and
+    tokens: W bit-equal leaf for leaf, the loss within 1e-5 relative."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import hierarchical_view
+
+    scratch.mkdir(parents=True, exist_ok=True)
+    store = scratch / "nccl_store"
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        base = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        view, axes = hierarchical_view(base, 1, 1)
+        cfg = get_config(ARCH)
+        W0 = ST.stacked_init(cfg, 1, torch.Generator(device=device).manual_seed(0),
+                             device)
+        before = {k: v[0].clone() for k, v in W0.items()}
+        specs = S.param_pspecs(ST.stacked_init(cfg, 1, None, "meta"), view,
+                               fsdp=axes.fsdp, model=axes.model,
+                               worker_axes=axes.worker_axes)
+        # the step updates a clone of each shard: ``before`` stays as it is
+        W = ST.shard_replica(before, view, axes, specs)
+        toks = torch.as_tensor(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (1, SHARDED_BATCH, SHARDED_SEQ)).astype(np.int32),
+            device=device)
+        gw = ST.default_gossip_weights(1, False)
+        chunk = min(512, max(SHARDED_SEQ // 4, 16))
+        step = ST.build_sharded_train_step(cfg, 1, axes, view, specs,
+                                           logit_chunk=chunk)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        W, loss = step(W, {"tokens": toks[0]}, 0.05, gw)
+        loss = float(loss)
+        torch.cuda.synchronize(device)
+        sharded_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        require(not any(counts.values()),
+                f"phase 29: the sharded step launched {counts}")
+        stacked = ST.build_train_step(cfg, 1, logit_chunk=chunk, device=device)
+        t0 = time.perf_counter()
+        W0, loss_s = stacked(W0, {"tokens": toks}, 0.05, gw)
+        loss_s = float(loss_s)
+        torch.cuda.synchronize(device)
+        stacked_s = time.perf_counter() - t0
+        eq = _step_equal(before, {k: w.to_local() for k, w in W.items()},
+                         {k: w[0] for k, w in W0.items()})
+        rel = abs(loss - loss_s) / abs(loss_s)
+        require(eq["over"] == 0 and eq["moved"] > 0 and rel <= 1e-5,
+                f"phase 29: the sharded step vs the stacked one {eq}, loss {rel}")
+        out = dict(loss=loss, stacked_loss=loss_s, sharded_s=sharded_s,
+                   stacked_s=stacked_s, peak_bytes=peak, loss_rel=rel,
+                   leaves=len(W), bit_equal=eq["differ"] == 0, **eq)
+        print(f"[29] {ARCH} sharded step on NCCL at world size 1 ({len(W)} "
+              f"DTensor leaves, seq {SHARDED_SEQ}, batch {SHARDED_BATCH}): "
+              f"{sharded_s:.3f} s, peak {peak / 2**30:.2f} GiB, launches "
+              f"{counts}; the stacked step {stacked_s:.3f} s; loss {loss:.6f} "
+              f"vs {loss_s:.6f} (rel {rel:.2e}); W: {eq['over']} elements "
+              f"over one unit in the last place, {eq['differ']} not bit-equal, "
+              f"{eq['moved']} of {eq['total']} moved by the step; torch "
+              f"{torch.__version__}, DeviceMesh._unflatten "
+              f"{hasattr(type(base), '_unflatten')}; card {card_line()}")
+    finally:
+        W = W0 = before = None
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_cli(device, scratch: Path) -> dict:
+    """Phase 29, the launcher: ``launch/train.py:main`` as ``torchrun``
+    starts it at world size 1 (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``
+    and a rendezvous on localhost in the environment), so that it creates
+    the NCCL group itself (``init_distributed``), builds the demo mesh
+    (``_sharded_setup``), feeds its worker's batch and checkpoints every
+    worker gathered (``gather_workers``); ``--demo`` (the reduced
+    recurrentgemma-2b, seq 64), 2 steps.  Held bit for bit against the
+    stacked ``main`` with ``--workers 1`` after each step, its checkpoint
+    restored bit for bit; no kernel launched."""
+    import os
+    import shutil
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+
+    argv = ["--arch", ARCH, "--demo", "--steps", "2", "--device", "cuda"]
+    ckpt = scratch / "sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = {"sharded": ([], []), "stacked": ([], [])}
+
+    def hook(tag, local):
+        def on_step(k, loss, seconds, W):
+            runs[tag][0].append(loss)
+            runs[tag][1].append({key: local(w).clone() for key, w in W.items()})
+        return on_step
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train.main(argv + ["--ckpt-dir", str(ckpt), "--ckpt-every", "2"],
+                        on_step=hook("sharded", lambda w: w.to_local()))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        destroyed = not dist.is_initialized()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(rc == 0 and destroyed and not any(counts.values()),
+            f"phase 29 launcher: rc {rc}, group left behind "
+            f"{not destroyed}, launches {counts}")
+    rc = train.main(argv + ["--workers", "1"],
+                    on_step=hook("stacked", lambda w: w[0]))
+    require(rc == 0, f"phase 29 launcher: the stacked run's rc {rc}")
+    (ls, Ws), (lt, Wt) = runs["sharded"], runs["stacked"]
+    require(len(Ws) == len(Wt) == 2 and all(
+        abs(a - b) <= 1e-5 * abs(b) for a, b in zip(ls, lt)),
+            f"phase 29 launcher: losses {ls} (sharded) vs {lt} (stacked)")
+    W0 = {k: v[0] for k, v in ST.stacked_init(
+        get_config(ARCH).reduced(), 1,
+        torch.Generator(device=device).manual_seed(0), device).items()}
+    eqs = [_step_equal(Wt[k - 1] if k else W0, Ws[k], Wt[k], units=k + 1)
+           for k in range(2)]
+    for k, eq in enumerate(eqs):
+        require(eq["over"] == 0 and eq["moved"] > 0,
+                f"phase 29 launcher step {k}: sharded vs stacked {eq}")
+    restored, extra = Checkpointer(str(ckpt)).restore(
+        {k: w[None] for k, w in Ws[1].items()})
+    differ = [k for k, w in restored.items() if not torch.equal(w[0], Ws[1][k])]
+    require(not differ and extra["stream"]["cursor"] == [2],
+            f"phase 29 launcher: the checkpoint differs in {differ[:4]}, "
+            f"extra {extra}")
+    print(f"[29] {ARCH} --demo through launch/train.py:main at WORLD_SIZE=1 "
+          f"(NCCL from the environment, 2 steps, {wall:.1f} s): losses "
+          f"{', '.join(f'{x:.6f}' for x in ls)} (stacked --workers 1: "
+          f"{', '.join(f'{x:.6f}' for x in lt)}); W against the stacked run "
+          f"after each step ({len(Wt[1])} leaves): {eqs}; the checkpoint "
+          f"restores bit for bit; launches {counts}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(losses=ls, wall=wall, bit_equal=all(
+        eq["differ"] == 0 for eq in eqs))
+
+
+def dry_run_pair() -> dict:
+    """After phase 29: ``python -m repro_torch.launch.dryrun`` on one pair
+    in a subprocess (the fake 256-rank group), its record printed."""
+    import os
+    arch, shape = DRYRUN_PAIR
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", arch, "--shape", shape],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"the dry run failed: {out.stderr[-3000:]}")
+    rec = json.loads([ln for ln in out.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    require("error" not in rec and rec["flops"] > 0, f"dry run record {rec}")
+    print(f"[29] dry run {arch} x {shape} on the 16x16 mesh of a fake 256-rank "
+          f"group ({wall:.1f} s): " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2289,6 +2604,18 @@ def main() -> int:
 
     lap("27")
 
+    # -- 28. the stacked multi-pod step ----------------------------------------
+    pod_step = train_multipod(device)
+
+    lap("28")
+
+    # -- 29. the sharded step on NCCL at world size 1; then the dry run --------
+    sharded = train_sharded(device, ROOT / "build" / "chip_smoke")
+    launcher = train_sharded_cli(device, ROOT / "build" / "chip_smoke")
+    dry = dry_run_pair()
+
+    lap("29")
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -2373,6 +2700,7 @@ def main() -> int:
             "launches_serve": {path: c.get(kname, 0)
                                for path, c in serve_paths.items()},
             "launches_train": trained_full["launches"][kname],
+            "launches_multipod": pod_step["launches"][kname],
             "train": ({k: train_at[0][k] for k in ("dtype", "N", "D")
                        + timed_keys} if train_at else None),
             "prefills": [{k: r[k] for k in ("arch", "prefix", "dtype", "B", "T",
@@ -2429,6 +2757,16 @@ def main() -> int:
           f"{trained_full['peak_bytes'] / 2**30:.2f} GiB; losses "
           f"{', '.join(f'{x:.4f}' for x in trained_full['losses'])}; "
           f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"[8] the launch stack: phase 28 (stacked, 2 pods × 2 workers, seq "
+          f"1024) {pod_step['seconds']:.3f} s a step, peak "
+          f"{pod_step['peak_bytes'] / 2**30:.2f} GiB; phase 29 (sharded, NCCL, "
+          f"world size 1) {sharded['sharded_s']:.3f} s vs stacked "
+          f"{sharded['stacked_s']:.3f} s, peak "
+          f"{sharded['peak_bytes'] / 2**30:.2f} GiB, bit-equal "
+          f"{sharded['bit_equal']}; the launcher at WORLD_SIZE=1 "
+          f"{launcher['wall']:.1f} s, bit-equal {launcher['bit_equal']}; dry run "
+          f"{DRYRUN_PAIR[0]} x {DRYRUN_PAIR[1]}: "
+          f"{dry['flops']:.4e} FLOP a rank, dominant {dry['dominant']}")
     print("[8] seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                               for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

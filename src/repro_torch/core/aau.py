@@ -50,7 +50,7 @@ which donated the carry, the sparse block updates ``W``, ``S``, ``y`` and
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,6 +147,103 @@ def build_event_step(loss_fn: Callable) -> Callable:
 def debiased_average(W: Params, y: torch.Tensor) -> Params:
     """Network average of push-sum de-biased estimates: mean_j (W_j / y_j)."""
     return {k: torch.mean(x / _expand(y, x), dim=0) for k, x in W.items()}
+
+
+# ---------------------------------------------------------------------------
+# Sharded production gossip (send/recv over a worker process group)
+# ---------------------------------------------------------------------------
+
+def permute(x: torch.Tensor, group, perms: Sequence[Sequence[Tuple[int, int]]]
+            ) -> List[torch.Tensor]:
+    """The reference's ``jax.lax.ppermute`` of ``x`` for each permutation of
+    ``perms``, all in one ``dist.batch_isend_irecv`` over ``group``.
+
+    ``perms[e]`` lists (src, dst) pairs of group ranks; this rank receives
+    the ``x`` of the src that names it (zeros where none does, as
+    ``ppermute``) and sends its own to each dst.  Peers are global ranks
+    (``dist.get_global_rank``).  Each permutation's sends and receives are
+    posted in the order of ``perms`` with the permutation's index as their
+    tag, so two permutations that reach the same peer (the ring's two
+    directions at n = 2) match one to one."""
+    import torch.distributed as dist
+    me = dist.get_rank(group)
+    ops, outs = [], []
+    for e, perm in enumerate(perms):
+        dsts = [d for s, d in perm if s == me]
+        srcs = [s for s, d in perm if d == me]
+        out = torch.zeros_like(x) if not srcs else torch.empty_like(x)
+        for d in dsts:
+            if d == me:
+                out.copy_(x)
+            else:
+                ops.append(dist.P2POp(dist.isend, x,
+                                      dist.get_global_rank(group, d), group, e))
+        for s_ in srcs:
+            if s_ != me:
+                ops.append(dist.P2POp(dist.irecv, out,
+                                      dist.get_global_rank(group, s_), group, e))
+        outs.append(out)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return outs
+
+
+def ring_perms(n: int) -> List[List[Tuple[int, int]]]:
+    """The ring's two directions as ``ppermute`` pairs: forward delivers
+    x_{j−1} to j, backward x_{j+1}."""
+    return [[(i, (i + 1) % n) for i in range(n)],
+            [((i + 1) % n, i) for i in range(n)]]
+
+
+def ring_gossip(x: torch.Tensor, group, n: int, self_w: torch.Tensor,
+                left_w: torch.Tensor, right_w: torch.Tensor) -> torch.Tensor:
+    """Weighted ring gossip along a worker process group of ``n`` ranks,
+    both directions in one batch of sends and receives.
+
+    ``out_j = self_w·x_j + left_w·x_{j−1} + right_w·x_{j+1}`` (indices mod
+    n), term by term in ``x``'s dtype as the reference writes it.  With the
+    Metropolis ring weights (1/3 each) it is the doubly-stochastic mix of a
+    static ring; a zero weight deactivates an edge (the buffers still
+    move, as the reference's ``ppermute`` does).  At n = 1 nothing is sent.
+    """
+    if n == 1:
+        return x
+    from_left, from_right = permute(x, group, ring_perms(n))
+    return self_w * x + left_w * from_left + right_w * from_right
+
+
+def tree_ring_gossip(params: Params, group, n: int, self_w, left_w,
+                     right_w) -> Params:
+    """``ring_gossip`` of every leaf, the weights cast to the leaf's dtype."""
+    def cast(w, p):
+        return torch.as_tensor(w).to(device=p.device, dtype=p.dtype)
+    return {k: ring_gossip(p, group, n, cast(self_w, p), cast(left_w, p),
+                           cast(right_w, p))
+            for k, p in params.items()}
+
+
+def graph_gossip(x: torch.Tensor, group,
+                 perms: Sequence[Sequence[Tuple[int, int]]],
+                 weights: torch.Tensor, self_weight: torch.Tensor) -> torch.Tensor:
+    """General static-topology gossip: one permutation per neighbour-offset
+    class, all in one batch of sends and receives.
+
+    ``perms[e]`` is a full permutation (list of (src, dst)) delivering each
+    worker its e-th neighbour's shard; ``weights[e]`` scales that
+    contribution.  For torus / multipod topologies where each worker has
+    the same number of neighbour classes."""
+    weights = torch.as_tensor(weights)
+    out = torch.as_tensor(self_weight).to(device=x.device, dtype=x.dtype) * x
+    for e, got in enumerate(permute(x, group, perms)):
+        out = out + weights[e].to(device=x.device, dtype=x.dtype) * got
+    return out
+
+
+def tree_graph_gossip(params: Params, group, perms, weights,
+                      self_weight) -> Params:
+    return {k: graph_gossip(p, group, perms, weights, self_weight)
+            for k, p in params.items()}
 
 
 def select_pool_batch(pools: Params, ptr: torch.Tensor) -> Params:

@@ -167,8 +167,10 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator],
                device: DeviceLike = "cuda") -> LM:
     """The model on ``device``, its weights drawn from ``gen`` with the
     reference's initialisers (uninitialised when ``gen`` is None, for a
-    load).  The draws happen on ``gen``'s device."""
-    return LM(cfg, resolve_device(device), gen)
+    load).  The draws happen on ``gen``'s device.  ``device="meta"`` with
+    ``gen`` None builds the shapes alone, allocating nothing."""
+    dev = resolve_device(device, shapes_only=gen is None)
+    return LM(cfg, dev, gen)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -424,12 +426,16 @@ def prefill(model: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device: DeviceLike = "cuda"):
+                      device: DeviceLike = "cuda", filled: bool = False):
     """Empty per-layer decode state sized for a KV history of ``cache_len``;
     the attention cache is ``min(window, cache_len)`` slots (rolling).  An
-    ssm layer's state is zeros of a fixed size (S float32 (B, H, K, K))."""
+    ssm layer's state is zeros of a fixed size (S float32 (B, H, K, K)).
+    ``filled`` marks the slots as holding positions [cache_len − size,
+    cache_len), as the reference's flag does (a decode step's mask reads
+    them: an empty slot, -1, is masked).  ``device="meta"`` builds the
+    shapes alone (the dry run's abstract inputs)."""
     _require_family(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, shapes_only=True)
     window = cfg.attn_window
     attn_len = min(window, cache_len) if window else cache_len
     dt = cfg.cdtype
@@ -437,10 +443,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
         return tuple(RW.RWKVState.zeros(batch, cfg, dt, dev)
                      for _ in range(cfg.n_layers))
 
-    return tuple(
-        KVCache.empty(batch, attn_len, cfg.n_kv_heads, cfg.d_head, dt, dev)
-        if pt == "attn" else RG.RGLRUState.zeros(batch, cfg, dt, dev)
-        for pt in block_pattern(cfg))
+    def attn_state():
+        c = KVCache.empty(batch, attn_len, cfg.n_kv_heads, cfg.d_head, dt, dev)
+        if filled:
+            pos = torch.arange(cache_len - attn_len, cache_len,
+                               dtype=torch.int32, device=dev)
+            c.positions[(pos % attn_len).long()] = pos
+        return c
+
+    return tuple(attn_state() if pt == "attn"
+                 else RG.RGLRUState.zeros(batch, cfg, dt, dev)
+                 for pt in block_pattern(cfg))
 
 
 def decode_step(model: Params, cfg: ModelConfig, token: torch.Tensor, state,

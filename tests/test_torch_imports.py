@@ -48,6 +48,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.optim.schedules", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer", "repro_torch.launch.mesh",
             "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.launch.sharding", "repro_torch.launch.shapes",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

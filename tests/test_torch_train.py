@@ -288,8 +288,14 @@ def test_ring_matrix_is_the_reference_ring():
     straggle = dict(w4, left=torch.tensor(0.0), right=torch.tensor(0.0),
                     self=torch.tensor(1.0))
     assert torch.equal(ST.ring_matrix(4, straggle), torch.eye(4))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ST.ring_matrix(4, ST.default_gossip_weights(4, True))
+    # one pod: the pod weight is not read, as the reference reads it only on
+    # a mesh with a pod axis; two pods of two: (1 − 1/4)·blockdiag(R, R) +
+    # 1/4·swap (held against the reference's pod gossip in
+    # test_torch_launch.py)
+    assert torch.equal(ST.ring_matrix(4, ST.default_gossip_weights(4, True)), P)
+    assert ST.ring_matrix(4, ST.default_gossip_weights(2, True), pods=2).tolist() == [
+        [0.375, 0.375, 0.25, 0.0], [0.375, 0.375, 0.0, 0.25],
+        [0.25, 0.0, 0.375, 0.375], [0.0, 0.25, 0.375, 0.375]]
     assert set(ST.gossip_weights_spec()) == set(JST.gossip_weights_spec())
 
 
@@ -451,6 +457,11 @@ def test_train_cli_demo(arch, tmp_path, capsys):
 def test_train_cli_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "minicpm-2b", "--demo", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="odd"):
         train.main(["--arch", "minicpm-2b", "--demo", "--multipod",
-                    "--device", "cpu"])
+                    "--workers", "3", "--device", "cpu"])
+    # two pods of two workers, stacked on the CPU (the two-pod matrix is
+    # held to the reference in test_torch_launch.py)
+    assert train.main(["--arch", "minicpm-2b", "--demo", "--multipod",
+                       "--workers", "4", "--steps", "1", "--seq", "32",
+                       "--device", "cpu"]) == 0
