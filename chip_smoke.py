@@ -141,6 +141,14 @@ non-zero, printing no result, when there is none or when any phase fails:
     bound, the loss within 1e-5 relative, bit-equality reported; then, in
     a subprocess, the dry run of qwen3-8b × train_4k on the 16×16 mesh of
     a fake 256-rank group, its record printed;
+30. the example drivers as their users run them
+    (``repro_torch.examples``): ``quickstart.main`` whole (five
+    algorithms at N = 16, 50 virtual seconds each, the dense scan's
+    ``masked_gossip``), one ``straggler_ablation`` cell, and
+    ``serve_batched.main`` at its default (reduced rwkv6) and with
+    ``--arch recurrentgemma-2b`` (``linear_scan``, ``swa_attention``);
+    counters zeroed just before each and read just after, every printed
+    number finite and non-zero;
 8. (printed last) a ``{"kernels": [...]}`` line, the card's name and power
    limit, and the final ``{"ok": true, "device": ...}`` line.
 
@@ -2331,6 +2339,96 @@ def dry_run_pair() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the example drivers
+# ---------------------------------------------------------------------------
+
+def _example_stdout(main, argv) -> tuple:
+    """(stdout lines, wall seconds) of one example's ``main(argv)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"{main.__module__}.main({argv}) returned {rc}")
+    return buf.getvalue().splitlines(), wall
+
+
+def run_examples(device) -> dict:
+    """Phase 30: the example drivers as their users run them, each with the
+    launch counters zeroed just before and read just after.  quickstart
+    whole (five algorithms at N = 16 for 50 virtual seconds; ``auto``
+    takes the dense scan, so ``masked_gossip``), one ``straggler_ablation``
+    cell (its own trainer, DSGD-AAU at the default protocol), and
+    ``serve_batched`` at its default (reduced rwkv6, no kernel) and with
+    ``--arch recurrentgemma-2b`` (``linear_scan``, ``swa_attention``).
+    Every number printed is finite and non-zero."""
+    import re
+    from repro_torch.examples import quickstart, serve_batched, straggler_ablation
+    dev_arg = ["--device", str(device)]
+    out = {}
+
+    reset_counts()
+    lines, wall = _example_stdout(quickstart.main, dev_arg)
+    sync(device)
+    counts = read_counts()
+    rows = {ln.split()[0]: [float(x) for x in ln.split()[1:]] for ln in lines[1:]}
+    print(f"[30] quickstart ({wall:.1f} s; launches {counts}):")
+    for ln in lines:
+        print("     " + ln)
+    require(list(rows) == list(quickstart.ALGORITHMS),
+            f"quickstart printed rows {list(rows)}")
+    require(all(math.isfinite(v) and v > 0 for r in rows.values() for v in r),
+            f"quickstart printed a zero or non-finite number: {rows}")
+    require(counts["masked_gossip"] > 0 and sum(counts.values())
+            == counts["masked_gossip"],
+            f"quickstart at N=16 should launch masked_gossip alone: {counts}")
+    out["quickstart"] = dict(wall=wall, launches=counts, rows=rows)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = straggler_ablation.make_classification_trainer(
+        "dsgd_aau", straggler_ablation.N_WORKERS, device=device).run(
+        max_time=straggler_ablation.BUDGET, eval_every=10**6)
+    sync(device)
+    wall, counts = time.perf_counter() - t0, read_counts()
+    print(f"[30] straggler_ablation cell dsgd_aau (prob 0.1, 10x; {wall:.1f} s): "
+          f"acc {res.final_metric:.4f}, loss {res.final_loss:.4f}, "
+          f"{res.total_events} events; launches {counts}")
+    require(math.isfinite(res.final_loss) and res.final_loss > 0
+            and res.final_metric > 0 and res.total_events > 0,
+            f"straggler_ablation cell: {res}")
+    require(counts["masked_gossip"] > 0, f"ablation cell launches {counts}")
+    out["ablation_cell"] = dict(wall=wall, launches=counts,
+                                events=res.total_events)
+
+    tail = re.compile(r"^(\S+) \((\S+)\): (\d+) requests, (\d+) tokens, "
+                      r"([\d.]+)s \(([\d.]+) tok/s greedy, slots=(\d+)\)$")
+    for arch, argv, needs in (("rwkv6-1.6b", [], ()),
+                              ("recurrentgemma-2b",
+                               ["--arch", "recurrentgemma-2b"],
+                               ("linear_scan", "swa_attention"))):
+        reset_counts()
+        lines, wall = _example_stdout(serve_batched.main, argv + dev_arg)
+        sync(device)
+        counts = read_counts()
+        m = tail.match(lines[-1])
+        require(m is not None and m.group(1) == arch,
+                f"serve_batched {arch}: last line {lines[-1]!r}")
+        n_req, n_tok, secs, tok_s = (int(m.group(3)), int(m.group(4)),
+                                     float(m.group(5)), float(m.group(6)))
+        print(f"[30] serve_batched {arch} ({wall:.1f} s; launches {counts}): "
+              f"{lines[-1]}")
+        require(n_tok == n_req * 24 and secs > 0 and math.isfinite(tok_s)
+                and tok_s > 0, f"serve_batched {arch}: {lines[-1]!r}")
+        require(all(counts[k] > 0 for k in needs),
+                f"serve_batched {arch} launched {counts}, needs {needs}")
+        out[f"serve_{arch}"] = dict(wall=wall, launches=counts, tok_s=tok_s)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2616,6 +2714,11 @@ def main() -> int:
 
     lap("29")
 
+    # -- 30. the example drivers ---------------------------------------------
+    examples = run_examples(device)
+
+    lap("30")
+
     # -- 8. summary ----------------------------------------------------------
     launches = {"masked_gossip": counts_dense["masked_gossip"],
                 "gossip_mix": per_event["launches"]["gossip_mix"],
@@ -2701,6 +2804,8 @@ def main() -> int:
                                for path, c in serve_paths.items()},
             "launches_train": trained_full["launches"][kname],
             "launches_multipod": pod_step["launches"][kname],
+            "launches_examples": {path: e["launches"][kname]
+                                  for path, e in examples.items()},
             "train": ({k: train_at[0][k] for k in ("dtype", "N", "D")
                        + timed_keys} if train_at else None),
             "prefills": [{k: r[k] for k in ("arch", "prefix", "dtype", "B", "T",
@@ -2767,6 +2872,11 @@ def main() -> int:
           f"{launcher['wall']:.1f} s, bit-equal {launcher['bit_equal']}; dry run "
           f"{DRYRUN_PAIR[0]} x {DRYRUN_PAIR[1]}: "
           f"{dry['flops']:.4e} FLOP a rank, dominant {dry['dominant']}")
+    print(f"[8] the example drivers: quickstart {examples['quickstart']['wall']:.1f} "
+          f"s, a straggler_ablation cell {examples['ablation_cell']['wall']:.1f} s, "
+          f"serve_batched rwkv6-1.6b "
+          f"{examples['serve_rwkv6-1.6b']['tok_s']:.1f} tok/s, recurrentgemma-2b "
+          f"{examples['serve_recurrentgemma-2b']['tok_s']:.1f} tok/s (reduced)")
     print("[8] seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                               for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

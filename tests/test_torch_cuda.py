@@ -354,10 +354,12 @@ def test_scatter_rows_copies_exactly(cuda, dt, d, a, offset):
 
 
 def test_all_pad_row_writes_nothing(cuda):
-    X = torch.randn(32, 100, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    X = torch.randn(32, 100, generator=gen, device=cuda)
     before = X.clone()
     w = torch.full((8,), -1, dtype=torch.int32, device=cuda)
-    sparse_ops.scatter_rows_cuda(X, torch.randn(8, 100, device=cuda), w)
+    sparse_ops.scatter_rows_cuda(
+        X, torch.randn(8, 100, generator=gen, device=cuda), w)
     assert torch.equal(X, before)
 
 
@@ -843,15 +845,16 @@ def test_cli_on_the_card_names_the_card(cuda, tmp_path):
 def test_wrappers_refuse_autograd_on_the_card(cuda):
     """On CUDA tensors too: an operand that requires grad raises before any
     launch (the launch counter stays), and under no_grad the kernel runs."""
-    W = torch.randn(4, 1000, device=cuda, requires_grad=True)
-    P = torch.rand(4, 4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    W = torch.randn(4, 1000, generator=gen, device=cuda, requires_grad=True)
+    P = torch.rand(4, 4, generator=gen, device=cuda)
     before = gossip_ops.gossip_mix_cuda.launches
     with pytest.raises(RuntimeError, match="gossip_mix: .*no backward"):
         gossip_ops.gossip_mix_cuda(W, P)
-    a = torch.rand(1, 64, 128, device=cuda, requires_grad=True)
+    a = torch.rand(1, 64, 128, generator=gen, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="linear_scan: .*no backward"):
         scan_ops.linear_scan_cuda(a, a.detach())
-    q = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    q = torch.randn(2, 64, 64, generator=gen, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="swa_attention: .*no backward"):
         swa_ops.swa_attention_cuda(q, q.detach(), q.detach(), window=8)
     assert gossip_ops.gossip_mix_cuda.launches == before

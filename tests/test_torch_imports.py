@@ -50,6 +50,16 @@ def test_every_module_imports_without_jax():
             "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
     assert {"repro_torch.launch.sharding", "repro_torch.launch.shapes",
             "repro_torch.launch.roofline", "repro_torch.launch.dryrun"} <= set(mods)
+    assert {"repro_torch.check.engine", "repro_torch.check.reporters",
+            "repro_torch.check.__main__", "repro_torch.check.rules",
+            "repro_torch.check.rules.host_sync",
+            "repro_torch.check.rules.rng_order",
+            "repro_torch.check.rules.donation",
+            "repro_torch.check.rules.aliasing",
+            "repro_torch.check.rules.recompile",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_batched",
+            "repro_torch.examples.straggler_ablation"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

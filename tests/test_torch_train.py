@@ -251,14 +251,15 @@ def test_cuda_wrappers_refuse_operands_that_require_grad(kernel):
     """On CPU tensors the refusal comes before the device check: a
     differentiable caller learns that the kernel has no backward, not that
     it is on the wrong device."""
+    gen = torch.Generator().manual_seed(0)
     ix = torch.arange(4, dtype=torch.int32)
-    x = torch.randn(4, 8, requires_grad=True)
+    x = torch.randn(4, 8, generator=gen, requires_grad=True)
     with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
         _wrapper_calls(x, ix)[kernel]()
     # under torch.func the operands are wrappers, whatever requires_grad says
     with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
         torch.func.grad(lambda y: (_wrapper_calls(y, ix)[kernel](), y.sum())[1])(
-            torch.randn(4, 8))
+            torch.randn(4, 8, generator=gen))
     # without autograd the device check speaks, as before
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA"):
