@@ -22,7 +22,9 @@ non-zero, printing no result, when there is none or when any phase fails:
    path's merged rows at A = 64; ``gossip_mix`` and
    ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32, ``gossip_mix``
    timed at every leaf width of the 2-NN; ``swa_attention`` over T 1-4096
-   with the serve waves' padded lengths, windows 1 to past T, dh 64-256);
+   with the serve waves' padded lengths, windows 1 to past T, dh 64-256,
+   and in bf16 at the kernel's tile edges, GQA 6 and 7 and strided
+   (B, T, H, dh) views of a fused projection);
 3. the main path: DSGD-AAU at N=256 with the full 2-NN through the bucketed
    active-set path (``sparse_scan``, rungs 16/64/256), 1024 events, with the
    kernels' launch counters set to 0 just before and read just after, and
@@ -204,6 +206,13 @@ ARCH = "recurrentgemma-2b"
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 8, 32
 SCAN_MAIN = (4, 4096, 2560)                # B, T, rnn width
 SWA_MAIN = (4, 4096, 10, 1, 256, 2048)     # B, T, H, KV, dh, window
+# the bf16 kernel's tile edges (128-key tiles at dh 64 and 128, 64 at dh
+# 256; 128 query rows a block) and windows about a tile, at B=2, GQA 4/2
+SWA_EDGE_T, SWA_EDGE_WINDOWS = (127, 128, 129, 255, 257), (1, 127, 128, 129)
+# GQA 6 and 7 at ragged T, musicgen's MHA at dh 64 (B, T, H, KV, dh, window)
+SWA_EDGE_HEADS = ((1, 257, 6, 1, 128, 257), (2, 1000, 12, 2, 128, 129),
+                  (1, 129, 7, 1, 128, 129), (1, 2795, 56, 8, 128, 2795),
+                  (2, 300, 8, 8, 64, 300), (1, 1030, 32, 32, 64, 127))
 SERVE_PADDED = (2795, 3561)                # phase 6's padded prompt lengths
 DENSE_ARCH = "qwen3-8b"                    # phase 16's model
 SWA_DENSE = (4, 4096, 32, 8, 128, 4096)   # its prefill: window = T (none)
@@ -635,7 +644,9 @@ def band_pairs(T: int, window: int) -> int:
 def check_sequence_kernels(device) -> list:
     """linear_scan and swa_attention against their plain versions: main
     shapes, ragged T and widths, decays 0 and 1, windows 1 to past T, MQA
-    and plain heads, head widths 64 and 256."""
+    and plain heads, head widths 64 and 256; then, in bf16, swa_attention
+    at its tile edges, GQA 6 and 7 and MHA at dh 64, each also through
+    (B, T, H, dh) views of one fused projection."""
     import torch
     from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -684,6 +695,15 @@ def check_sequence_kernels(device) -> list:
                                           1, T, 10, 1, dh, window))
         rows.append(_swa_case(swa_ops, gen, device, dname, dt, *SWA_MAIN,
                               timed=True))
+    bf = torch.bfloat16
+    for T in SWA_EDGE_T:
+        for window in SWA_EDGE_WINDOWS + (T + 1,):
+            for dh in (64, 128, 256):
+                rows.append(_swa_case(swa_ops, gen, device, "bfloat16", bf,
+                                      2, T, 4, 2, dh, window))
+    for case in SWA_EDGE_HEADS:
+        rows.append(_swa_case(swa_ops, gen, device, "bfloat16", bf, *case))
+        rows.append(_swa_view_case(swa_ops, gen, device, *case))
     return rows
 
 
@@ -732,6 +752,31 @@ def _swa_case(swa_ops, gen, device, dname, dt, B, T, H, KV, dh, window,
             plain, 2,
             lambda: F.scaled_dot_product_attention(q4, k4, v4, **mask)))
     return row
+
+
+def _swa_view_case(swa_ops, gen, device, B, T, H, KV, dh, window):
+    """``swa_attention``'s (B, T, H, dh) entry in bf16 on q, k and v cut
+    from one fused projection (strided views, read in place through their
+    tensor maps) against the plain version on contiguous heads; the output
+    comes back (B, T, H, dh) and contiguous."""
+    import torch
+    qkv = torch.randn(B, T, (H + 2 * KV) * dh, generator=gen).to(
+        device, torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (-1, dh))
+               for t in qkv.split((H * dh, KV * dh, KV * dh), dim=-1))
+    before = swa_ops.swa_attention_cuda.launches
+    out = swa_ops.swa_attention(q, k, v, window=window)
+    require(swa_ops.swa_attention_cuda.launches == before + 1,
+            "swa_attention: a strided (B, T, H, dh) call did not launch once")
+    require(out.shape == (B, T, H, dh) and out.is_contiguous(),
+            f"swa_attention: output {tuple(out.shape)} not (B, T, H, dh)")
+    flat = [t.transpose(1, 2).reshape(B * t.shape[2], T, dh) for t in (q, k, v)]
+    ref = swa_ops.swa_attention_plain(*flat, window=window, n_groups=H // KV)
+    torch.cuda.synchronize()
+    return dict(kernel="swa_attention", dtype="bfloat16", B=B, T=T, H=H,
+                KV=KV, dh=dh, window=window, layout="fused views",
+                max_abs_err=close(out.transpose(1, 2).reshape(B * H, T, dh),
+                                  ref, "bfloat16", SWA_TOL))
 
 
 def check_lm_kernels(device) -> list:

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("masked_gossip", "gossip_mix", "sparse_gossip", "scatter_rows",
            "linear_scan", "swa_attention")
-HEADERS = ("common.cuh", "tf32_mix.cuh")
+HEADERS = ("common.cuh", "tf32_mix.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -147,18 +147,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_operands(what: str, floats: Mapping[str, torch.Tensor],
-                   ints: Optional[Mapping[str, torch.Tensor]] = None
-                   ) -> torch.device:
+                   ints: Optional[Mapping[str, torch.Tensor]] = None,
+                   contiguous: bool = True) -> torch.device:
     """Validate a kernel launch's operands; return their common device.
 
     No kernel has a backward (nor has any Pallas kernel of the reference),
     so an operand that autograd or ``torch.func`` tracks raises first, on
     any device: the kernel's output would silently stop requiring grad, or
     ``data_ptr`` would fail on a functorch wrapper.  Then every operand
-    must be a contiguous CUDA tensor on one device; the float operands
+    must be a CUDA tensor on one device; the float operands
     share one dtype the kernels take (float32 or bfloat16), the index
-    operands are int32.  Anything else raises -- a wrapper never hands a
-    tensor it cannot launch on to a plain version instead.
+    operands are int32, and all are contiguous unless ``contiguous`` is
+    False (a kernel that reads strided tensors checks their strides
+    itself).  Anything else raises -- a wrapper never hands a tensor it
+    cannot launch on to a plain version instead.
     """
     ints = ints or {}
     tensors = {**floats, **ints}
@@ -187,6 +189,6 @@ def check_operands(what: str, floats: Mapping[str, torch.Tensor],
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: {k} must be int32, got {t.dtype}")
     for k, t in tensors.items():
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: {k} must be contiguous")
     return next(iter(devices))

@@ -1,11 +1,16 @@
 """Wrapper of the swa_attention CUDA kernel: sliding-window prefill attention.
 
 ``swa_attention`` keeps the reference's (B, T, H, dh) interface
-(``repro/kernels/swa_attention/ops.py``): it flattens heads batch-major to
-(B·H, T, dh) and (B·KV, T, dh), so the KV head of q head bh is
-bh // (H // KV), and hands them to the kernel for CUDA tensors or to the
-plain PyTorch version for CPU tensors -- nothing else.  The kernel masks
-ragged T itself, so nothing is padded here.
+(``repro/kernels/swa_attention/ops.py``); the KV head of q head h is
+h // (H // KV).  It hands the tensors to the kernel for CUDA tensors or to
+the plain PyTorch version for CPU tensors -- nothing else.  In bfloat16 the
+kernel reads q, k and v through TMA tensor maps with their own strides and
+writes a (B, T, H, dh) output, so a projection's (B, T, H, dh) views (even
+slices of one fused projection) go in and out with no layout copy; strides
+a tensor map cannot take raise.  float32 runs the CUDA-core kernel, which
+takes contiguous (B·H, T, dh) heads, so that path and the CPU path flatten
+heads batch-major first.  The kernel masks ragged T itself, so nothing is
+padded here.
 """
 from __future__ import annotations
 
@@ -19,19 +24,85 @@ from repro_torch.kernels import build
 from repro_torch.kernels.swa_attention.ref import swa_attention_ref
 
 _PROTOTYPES = {
-    "swa_attention_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 4
-    + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p),
+    "swa_attention_f32_launch": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+    + (ctypes.c_float, ctypes.c_void_p),
+    "swa_attention_bf16_launch": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+    + (ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p),
 }
 HEAD_DIMS = (64, 128, 256)   # head widths the kernel is instantiated for
+MAX_HEADS = 65535            # B·H: the grid's second dimension
 
 # the plain version is the float32 oracle: materialised masked softmax
 swa_attention_plain = swa_attention_ref
 
 
+def tma_strides(t: torch.Tensor, name: str) -> list:
+    """Element strides of the (batch, position, head) dims of a (B, T, H,
+    dh) bfloat16 tensor, as its tensor map takes them; raise ValueError,
+    naming the kernel, for strides TMA cannot take (dh not contiguous,
+    another stride off a multiple of 16 bytes, a base off 16 bytes).  A
+    size-1 dim is never stepped, so its stride is replaced by dh."""
+    B, T, H, dh = t.shape
+    bad = []
+    if dh > 1 and t.stride(3) != 1:
+        bad.append("the head dim is not contiguous")
+    steps = []
+    for dim, size in ((0, B), (1, T), (2, H)):
+        stride = t.stride(dim)
+        if size == 1:
+            stride = dh
+        elif (stride * t.element_size()) % 16:
+            bad.append(f"dim {dim}'s stride {stride} is not a multiple of "
+                       f"16 bytes")
+        steps.append(stride)
+    if t.data_ptr() % 16:
+        bad.append("its base is not 16-byte aligned")
+    if bad:
+        raise ValueError(f"swa_attention: {name} of shape {tuple(t.shape)} "
+                         f"and strides {t.stride()} cannot be read through "
+                         f"a TMA tensor map: " + "; ".join(bad))
+    return steps
+
+
+def _check(q, k, v, window: int, contiguous: bool) -> torch.device:
+    """The checks both entries share; return the operands' device."""
+    dev = build.check_operands("swa_attention", {"q": q, "k": k, "v": v},
+                               contiguous=contiguous)
+    dh = q.shape[-1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"swa_attention: head width {dh} is not one of "
+                         f"{HEAD_DIMS}")
+    if window < 1:
+        raise ValueError(f"swa_attention: window must be >= 1, got {window}")
+    return dev
+
+
+def _launch_bf16(dev, q, k, v, out, window: int) -> None:
+    """The bfloat16 kernel on (B, T, H, dh) q and out and (B, T, KV, dh)
+    k and v of any strides a tensor map takes."""
+    B, T, H, dh = q.shape
+    KV = k.shape[2]
+    if B * H > MAX_HEADS:
+        raise ValueError(f"swa_attention: {B * H} heads exceed the grid's "
+                         f"{MAX_HEADS}")
+    steps = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
+             for s in tma_strides(t, name)]
+    if out.numel() == 0:
+        return
+    lib = build.load("swa_attention", _PROTOTYPES)
+    strides = (ctypes.c_longlong * 12)(*steps)
+    build.launch(
+        lib, "swa_attention_bf16_launch", dev, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, T, H, KV, dh, min(window, T),
+        1.0 / math.sqrt(dh), ctypes.addressof(strides))
+    swa_attention_cuda.launches += 1
+
+
 def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        window: int, n_groups: int = 1) -> torch.Tensor:
-    """The CUDA kernel: q (BH, T, dh), k and v (BH / n_groups, T, dh)."""
-    dev = build.check_operands("swa_attention", {"q": q, "k": k, "v": v})
+    """The CUDA kernel: q (BH, T, dh), k and v (BH / n_groups, T, dh),
+    contiguous."""
+    dev = _check(q, k, v, window, contiguous=True)
     if q.dim() != 3:
         raise ValueError(f"swa_attention: q must be (BH, T, dh), got {tuple(q.shape)}")
     BH, T, dh = q.shape
@@ -40,21 +111,22 @@ def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"swa_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
             f"v{tuple(v.shape)} do not agree with n_groups={n_groups}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"swa_attention: head width {dh} is not one of "
-                         f"{HEAD_DIMS}")
-    if window < 1:
-        raise ValueError(f"swa_attention: window must be >= 1, got {window}")
-    if BH > 65535:
-        raise ValueError(f"swa_attention: {BH} heads exceed the grid's 65535")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        # the heads as one batch row: (1, T, BH, dh) views, no copy
+        _launch_bf16(dev, *(t.unsqueeze(0).transpose(1, 2)
+                            for t in (q, k, v, out)), window)
+        return out
+    if BH > MAX_HEADS:
+        raise ValueError(f"swa_attention: {BH} heads exceed the grid's "
+                         f"{MAX_HEADS}")
     if out.numel() == 0:
         return out
     lib = build.load("swa_attention", _PROTOTYPES)
     build.launch(
-        lib, "swa_attention_launch", dev, build.DTYPE_CODES[q.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, T, dh,
-        n_groups, min(window, T), 1.0 / math.sqrt(dh))
+        lib, "swa_attention_f32_launch", dev, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), BH, T, dh, n_groups, min(window, T),
+        1.0 / math.sqrt(dh))
     swa_attention_cuda.launches += 1
     return out
 
@@ -74,7 +146,15 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H % KV:
         raise ValueError(f"swa_attention: {H} heads are not a multiple of "
                          f"{KV} KV heads")
+    if k.shape != (B, T, KV, dh) or v.shape != k.shape:
+        raise ValueError(f"swa_attention: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} do not agree")
     window = T if window is None else window
+    if q.device.type != "cpu" and q.dtype == torch.bfloat16:
+        dev = _check(q, k, v, window, contiguous=False)
+        out = torch.empty(B, T, H, dh, dtype=q.dtype, device=q.device)
+        _launch_bf16(dev, q, k, v, out, window)
+        return out
     qf = q.transpose(1, 2).reshape(B * H, T, dh).contiguous()
     kf = k.transpose(1, 2).reshape(B * KV, T, dh).contiguous()
     vf = v.transpose(1, 2).reshape(B * KV, T, dh).contiguous()

@@ -1,6 +1,6 @@
-"""Times of the trainer's kernels on one source tree, for an A/B of two.
+"""Times of the port's kernels on one source tree, for an A/B of two.
 
-    python src/repro_torch/xp/kernel_times.py [--src DIR]
+    python src/repro_torch/xp/kernel_times.py [--src DIR] [--kernels K]
 
 Imports ``repro_torch`` from ``DIR`` (a tree's ``src`` directory; by
 default the tree this file lies in) and, on one CUDA card, times the kernel
@@ -21,7 +21,16 @@ this file's tree) and with the timing functions of this file's tree
   (``body=``), both bodies at A = 8-64 (``crossover``: the rows that set
   the dispatch rule of ``csrc/sparse_gossip.cu``);
 - ``gossip_mix`` at N = 256 over the leaf widths and
-  ``gossip_mix_batched`` at E = 32, N = 64, D = 65536, float32.
+  ``gossip_mix_batched`` at E = 32, N = 64, D = 65536, float32;
+- ``swa_attention`` in bf16 through its (B·H, T, dh) entry at the seven
+  no-window prefill shapes of ``chip_smoke.py`` phase 2 (qwen3-8b at
+  ``SWA_DENSE``, then B = 4 at the longer serve wave, T = 3561, for each
+  attention arch of phases 19-24, and behind the audio and vlm archs' stub
+  prefix) and at the windowed ``SWA_MAIN``, beside SDPA with its own
+  causal mask (with the band as a mask tensor at ``SWA_MAIN``), each with
+  its bound.
+
+``--kernels gossip`` or ``--kernels swa_attention`` times one family.
 
 Each case reports ``device_ms`` (L2 emptied before each call; the count of
 device events per call is held to whole multiples, since the trees'
@@ -141,10 +150,71 @@ def measure(smoke, timing) -> dict:
     return out
 
 
+def swa_shapes(smoke) -> dict:
+    """The timed ``swa_attention`` shapes, (B, T, H, KV, dh, window) by
+    name, from ``chip_smoke.py``'s constants and the tree's configs."""
+    from repro_torch.configs import get_config
+    B, T, H, KV, dh, _ = smoke.SWA_DENSE
+    shapes = {smoke.DENSE_ARCH: (B, T, H, KV, dh, T)}
+    T0 = max(smoke.SERVE_PADDED)
+    for arch in ([a for a, _, _ in smoke.MOE_SERVE]
+                 + [a for a, _ in smoke.MM_SERVE]):
+        cfg = get_config(arch)
+        if cfg.is_attention_free:
+            continue
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+        shapes[arch] = (4, T0, *heads, T0)
+        P = cfg.n_prefix_tokens
+        if P:
+            shapes[f"{arch} + {P} prefix"] = (4, T0 + P, *heads, T0 + P)
+    shapes[f"{smoke.ARCH} window"] = smoke.SWA_MAIN
+    return shapes
+
+
+def measure_swa(smoke, timing) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    flush = timing.l2_flush(dev)
+    out = {}
+    for name, (B, T, H, KV, dh, window) in swa_shapes(smoke).items():
+        g = H // KV
+        q, k, v = (torch.randn(B * n, T, dh, generator=gen).to(dev, torch.bfloat16)
+                   for n in (H, KV, KV))
+        q4 = q.reshape(B, H, T, dh)
+        k4, v4 = (t.reshape(B, KV, 1, T, dh).expand(B, KV, g, T, dh)
+                  .reshape(B, H, T, dh) for t in (k, v))
+        pos = torch.arange(T, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        mask = dict(is_causal=True) if window >= T else dict(attn_mask=band)
+        fn = lambda: swa_ops.swa_attention_cuda(q, k, v, window=window, n_groups=g)
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, **mask)
+        bound, by = smoke.bound_ms((2 * q.numel() + 2 * k.numel()) * 2,
+                                   4.0 * B * H * smoke.band_pairs(T, window) * dh,
+                                   "bfloat16")
+        reps = 20
+        out[name] = dict(
+            shape=dict(B=B, T=T, H=H, KV=KV, dh=dh, window=window),
+            device_ms=timing.device_ms(fn, reps, flush=flush),
+            ms=timing.time_ms(fn, reps),
+            library_device_ms=timing.device_ms(library, reps, flush=flush),
+            library_ms=timing.time_ms(library, reps),
+            library="SDPA " + ("is_causal" if window >= T else "band mask"),
+            bound_ms=bound, bound_by=by)
+        del q, k, v, q4, k4, v4, band
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=HERE.parents[2],
                     help="the src directory of the tree to time")
+    ap.add_argument("--kernels", choices=("all", "gossip", "swa_attention"),
+                    default="all", help="time one family of kernels")
     args = ap.parse_args(argv)
     src = args.src.resolve()
     smoke = _module("chip_smoke_shapes", ROOT / "chip_smoke.py")
@@ -164,8 +234,12 @@ def main(argv=None) -> int:
                            "--format=csv,noheader", "--id=0"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
-    print(json.dumps({"src": str(src), "card": card,
-                      **measure(smoke, timing)}))
+    times = {}
+    if args.kernels in ("all", "gossip"):
+        times.update(measure(smoke, timing))
+    if args.kernels in ("all", "swa_attention"):
+        times["swa_attention"] = measure_swa(smoke, timing)
+    print(json.dumps({"src": str(src), "card": card, **times}))
     return 0
 
 

@@ -487,7 +487,18 @@ def test_linear_scan_kernel_matches_plain(cuda, B, Tn, W, kind, dt):
     # grok-1's and arctic's prefills: GQA 48/8 and 56/8, dh 128, no window
     (1, 2795, 48, 8, 128, 2795), (1, 3561, 56, 8, 128, 3561),
     # float32 keeps the CUDA-core kernel: dh = 64 at the float32 bound
-    (1, 300, 4, 2, 64, 100)])
+    (1, 300, 4, 2, 64, 100),
+    # the bf16 kernel's tile edges: 128 query rows a block, 128-key tiles
+    # at dh 64 and 128 (64 at dh 256), windows about a tile
+    (2, 127, 4, 2, 128, 127), (2, 128, 4, 2, 128, 128),
+    (2, 129, 4, 2, 128, 129), (2, 255, 4, 2, 64, 255),
+    (2, 257, 4, 2, 256, 257), (1, 257, 4, 2, 128, 1),
+    (1, 257, 4, 2, 128, 127), (1, 257, 4, 2, 64, 128),
+    (1, 300, 4, 2, 128, 129), (1, 300, 4, 2, 256, 129),
+    # GQA 6 and 7 at ragged T
+    (1, 1000, 12, 2, 128, 1000), (1, 257, 7, 1, 128, 129),
+    # dh 64 MHA (a 3-stage K/V ring)
+    (2, 1030, 8, 8, 64, 1030), (1, 3561, 32, 32, 64, 500)])
 def test_swa_attention_kernel_matches_plain(cuda, B, Tn, H, KV, dh, w, dt):
     g = torch.Generator().manual_seed(Tn + w)
     q = torch.randn(B, Tn, H, dh, generator=g).to(cuda, dt)
@@ -527,6 +538,40 @@ def test_swa_attention_at_the_audio_and_vlm_prefills(cuda, B, Tn, H, KV, dh, dt)
         flat = [t[b].transpose(0, 1).contiguous() for t in (q, k, v)]
         ref = swa_ops.swa_attention_plain(*flat, window=Tn, n_groups=H // KV)
         _close(out[b], ref.transpose(0, 1), dt)
+
+
+@pytest.mark.parametrize("B,Tn,H,KV,dh,w", [
+    (2, 300, 8, 2, 128, 300), (1, 257, 6, 1, 64, 129),
+    (2, 129, 4, 1, 256, 64)])
+def test_swa_attention_reads_strided_views(cuda, B, Tn, H, KV, dh, w):
+    """bf16 q, k and v cut from one fused projection go in as they are
+    (read through their tensor maps) and the output comes back (B, T, H,
+    dh) contiguous, equal to the plain version on contiguous heads."""
+    g = torch.Generator().manual_seed(Tn * 3 + dh)
+    x = torch.randn(B, Tn, (H + 2 * KV) * dh, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (-1, dh))
+               for t in x.split((H * dh, KV * dh, KV * dh), dim=-1))
+    before = swa_ops.swa_attention_cuda.launches
+    out = swa_ops.swa_attention(q, k, v, window=w)
+    assert swa_ops.swa_attention_cuda.launches == before + 1
+    assert out.shape == (B, Tn, H, dh) and out.is_contiguous()
+    torch.cuda.synchronize()
+    flat = [t.transpose(1, 2).reshape(B * t.shape[2], Tn, dh) for t in (q, k, v)]
+    ref = swa_ops.swa_attention_plain(*flat, window=w, n_groups=H // KV)
+    torch.testing.assert_close(out.float(), ref.reshape(B, H, Tn, dh).transpose(
+        1, 2).float(), atol=5e-3, rtol=1e-2)
+
+
+def test_swa_attention_refuses_strides_a_tensor_map_cannot_take(cuda):
+    """Rows 260 bytes apart (not a multiple of 16) raise, naming the
+    kernel; nothing is copied and nothing launches."""
+    B, Tn, H, dh = 1, 64, 2, 64
+    x = torch.zeros(B, Tn, H * dh + 2, device=cuda, dtype=torch.bfloat16)
+    q = x[..., :H * dh].unflatten(-1, (H, dh))
+    before = swa_ops.swa_attention_cuda.launches
+    with pytest.raises(ValueError, match="swa_attention: q .*TMA"):
+        swa_ops.swa_attention(q, q, q, window=8)
+    assert swa_ops.swa_attention_cuda.launches == before
 
 
 def test_sequence_kernels_refuse_what_they_cannot_launch(cuda):

@@ -458,6 +458,86 @@ def test_swa_attention_plain_matches_reference(B, T, H, KV, dh, w, dtype):
             **_tol(dtype))
 
 
+# The CUDA kernel's tile edges (128 query rows a block; 128-key tiles at
+# dh 64 and 128, 64 at dh 256) and windows about a tile, GQA 6 and 7 at a
+# ragged T: the oracle the card holds the kernel to, pinned here against
+# the reference at the same T, windows and groups (narrow heads).
+SWA_EDGE_CASES = (
+    [(1, T, 2, 1, 8, w) for T in (127, 128, 129, 255, 257)
+     for w in (1, 127, 128, 129)]
+    + [(1, 257, 6, 1, 8, 257), (1, 129, 7, 1, 8, 129),
+       (2, 255, 12, 2, 8, 128), (1, 200, 14, 2, 8, 127)])
+
+
+@pytest.mark.parametrize("B,T,H,KV,dh,w", SWA_EDGE_CASES)
+def test_swa_attention_plain_at_the_kernel_tile_edges(B, T, H, KV, dh, w):
+    rng = np.random.default_rng(T * 7 + w + H)
+    q, k, v = (rng.normal(size=(B, T, n, dh)).astype(np.float32)
+               for n in (H, KV, KV))
+    out = swa_ops.swa_attention(*(torch.as_tensor(t) for t in (q, k, v)),
+                                window=w)
+    flat = [jnp.asarray(t.transpose(0, 2, 1, 3).reshape(B * t.shape[2], T, dh))
+            for t in (q, k, v)]
+    ref = _jit_swa_ref(*flat, window=w, n_groups=H // KV)
+    ref = np.asarray(ref).reshape(B, H, T, dh).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.numpy(), ref, **_tol("float32"))
+
+
+def _fused_views(x, H, KV, dh):
+    """q, k and v cut from one fused (B, T, (H + 2·KV)·dh) projection: the
+    (B, T, H, dh) views a model hands over, strided, not contiguous."""
+    return tuple(t.unflatten(-1, (-1, dh))
+                 for t in x.split((H * dh, KV * dh, KV * dh), dim=-1))
+
+
+def test_swa_attention_takes_strided_views():
+    """Views of one fused projection give the reference's result (the
+    CPU path flattens them; the card reads them through tensor maps)."""
+    B, T, H, KV, dh, w = 2, 130, 6, 2, 16, 64
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(B, T, (H + 2 * KV) * dh)).astype(np.float32)
+    q, k, v = _fused_views(torch.as_tensor(x), H, KV, dh)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    out = swa_ops.swa_attention(q, k, v, window=w)
+    assert out.shape == (B, T, H, dh)
+    flat = [jnp.asarray(t.numpy().transpose(0, 2, 1, 3).reshape(
+        B * t.shape[2], T, dh)) for t in (q, k, v)]
+    ref = _jit_swa_ref(*flat, window=w, n_groups=H // KV)
+    ref = np.asarray(ref).reshape(B, H, T, dh).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.numpy(), ref, **_tol("float32"))
+
+
+def test_tma_strides_of_views_a_tensor_map_takes():
+    B, T, H, KV, dh = 2, 33, 6, 2, 64
+    x = torch.zeros(B, T, (H + 2 * KV) * dh, dtype=torch.bfloat16)
+    q, k, _ = _fused_views(x, H, KV, dh)
+    row = (H + 2 * KV) * dh
+    assert swa_ops.tma_strides(q, "q") == [T * row, row, dh]
+    assert swa_ops.tma_strides(k, "k") == [T * row, row, dh]
+    # a size-1 dim is never stepped: its stride is replaced by dh
+    one = torch.zeros(1, 1, 1, 128, dtype=torch.bfloat16)
+    assert swa_ops.tma_strides(one, "q") == [128, 128, 128]
+    # the (B·H, T, dh) entry's view: heads as one batch row
+    flat = torch.zeros(12, T, dh, dtype=torch.bfloat16)
+    assert swa_ops.tma_strides(flat.unsqueeze(0).transpose(1, 2), "q") == [
+        dh, dh, T * dh]
+
+
+@pytest.mark.parametrize("what", ["head dim", "row stride", "base"])
+def test_tma_strides_refuses_what_a_tensor_map_cannot_take(what):
+    B, T, H, dh = 1, 8, 2, 64
+    if what == "head dim":       # dh not contiguous
+        t = torch.zeros(B, T, dh, H, dtype=torch.bfloat16).transpose(2, 3)
+    elif what == "row stride":   # rows 130 bf16 = 260 bytes apart
+        t = torch.zeros(B, T, H * dh + 2, dtype=torch.bfloat16)[
+            ..., :H * dh].unflatten(-1, (H, dh))
+    else:                        # base 2 bytes off a 16-byte boundary
+        t = torch.zeros(B * T * H * dh + 1, dtype=torch.bfloat16)[1:].view(
+            B, T, H, dh)
+    with pytest.raises(ValueError, match="swa_attention: q .*TMA"):
+        swa_ops.tma_strides(t, "q")
+
+
 def test_swa_attention_plain_matches_pallas_interpret():
     """The port's public (B, T, H, dh) op against the reference's Pallas op
     run in interpret mode, with ragged T and GQA."""
