@@ -21,7 +21,11 @@ non-zero, printing no result, when there is none or when any phase fails:
    A = 2, 16, 64, 256 with all, some and no lanes valid, and the main
    path's merged rows at A = 64; ``gossip_mix`` and
    ``gossip_mix_batched`` over N 1-256, D 1-65536, E 1-32, ``gossip_mix``
-   timed at every leaf width of the 2-NN; ``swa_attention`` over T 1-4096
+   timed at every leaf width of the 2-NN; the dense products' two bodies
+   (the CUDA-core body, which the rule runs at N ≤ ``SMALL_N``, and the
+   tensor-core body), each forced, at N 1-32 and the rule's crossover,
+   the CUDA-core body also against the float64 product; ``swa_attention``
+   over T 1-4096
    with the serve waves' padded lengths, windows 1 to past T, dh 64-256,
    and in bf16 at the kernel's tile edges, GQA 6 and 7 and strided
    (B, T, H, dh) views of a fused projection);
@@ -253,7 +257,7 @@ SHARDED_SEQ, SHARDED_BATCH = 4096, 2
 # the dry run's pair after phase 29, in a subprocess (the fake group cannot
 # share a process with NCCL) and its time limit
 DRYRUN_PAIR, DRYRUN_TIMEOUT = ("qwen3-8b", "train_4k"), 300
-MIX_N, MIX_D = (1, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
+MIX_N, MIX_D = (1, 4, 8, 63, 64, 100, 256), (1, 10, 511, 2560, 4097, 65536)
 MIX_E = (1, 7, 32)
 BATCHED_MAIN = (32, 64, 65536)             # E, N, D of gossip_mix_batched
 
@@ -407,7 +411,8 @@ def check_kernels(device) -> dict:
                 **timings(
                     lambda: gossip_ops.masked_gossip_cuda(W, G, Pd, Q), REPS,
                     lambda: gossip_ops.masked_gossip_plain(W, G, Pd, Q), REPS,
-                    lambda: Pd.T @ W - Q.T @ G, launches=2)))
+                    lambda: Pd.T @ W - Q.T @ G,
+                    launches=gossip_ops.masked_gossip_kernels(N))))
         mine = {r["D"]: r for r in rows
                 if r["kernel"] == "masked_gossip" and r["dtype"] == dname}
         per_event = {k: sum(mine[D][k] for D in NN_LEAVES)
@@ -559,7 +564,8 @@ def check_mix_kernels(device) -> list:
                     row.update(timings(
                         lambda: gossip_ops.gossip_mix_cuda(W, P), REPS,
                         lambda: gossip_ops.gossip_mix_plain(W, P), 20,
-                        lambda: torch.matmul(P.T, W), launches=2))
+                        lambda: torch.matmul(P.T, W),
+                        launches=gossip_ops.gossip_mix_kernels(N)))
                 rows.append(row)
                 del W, out, ref
         if dname == "float32":
@@ -595,9 +601,94 @@ def check_mix_kernels(device) -> list:
                         row.update(timings(
                             lambda: gossip_ops.gossip_mix_batched_cuda(W, P), REPS,
                             lambda: gossip_ops.gossip_mix_batched_plain(W, P), 20,
-                            lambda: torch.bmm(Pt, W), launches=2))
+                            lambda: torch.bmm(Pt, W),
+                            launches=gossip_ops.gossip_mix_kernels(N)))
                     rows.append(row)
                     del W, out, ref
+    return rows
+
+
+def check_dense_bodies(device) -> list:
+    """Both bodies of the dense products, forced, against the plain
+    versions: ``gossip_mix``, ``masked_gossip`` and ``gossip_mix_batched``
+    (over ``MIX_E``) at every N of ``MIX_N`` the CUDA-core body takes, at
+    the rule's crossover ``SMALL_N`` and at the widest N the CUDA-core body
+    takes, over ``MIX_D``, float32 and bfloat16; then the CUDA-core body
+    against the float64 product where an unnormalised P makes outputs of
+    order 10 (at that widest N)."""
+    import torch
+    from repro_torch.kernels.gossip_mix import ops as gossip_ops
+
+    gen = torch.Generator().manual_seed(25)
+    dgen = torch.Generator(device=device).manual_seed(25)
+    widest = gossip_ops.CORES_MAX_N
+    small = max(n for n in range(1, widest + 1)
+                if gossip_ops.gossip_mix_kernels(n) == 1)
+    ns = sorted({n for n in MIX_N if n <= widest} | {small, widest})
+    rows = []
+
+    def rnd(*shape, dt):
+        return torch.randn(*shape, generator=dgen, device=device).to(dt)
+
+    def stochastic(*lead, n, dt):
+        P = torch.rand(*lead, n, n, generator=gen) + torch.eye(n)
+        return (P / P.sum(-1, keepdim=True)).to(device, dt)
+
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for n in ns:
+            P = stochastic(n=n, dt=dt)
+            Q = (0.2 * P).contiguous()
+            for D in MIX_D:
+                W, G = rnd(n, D, dt=dt), rnd(n, D, dt=dt)
+                for body in ("cores", "tensor"):
+                    for kernel, out, ref in (
+                            ("gossip_mix", gossip_ops.gossip_mix_cuda(W, P, body=body),
+                             gossip_ops.gossip_mix_plain(W, P)),
+                            ("masked_gossip",
+                             gossip_ops.masked_gossip_cuda(W, G, P, Q, body=body),
+                             gossip_ops.masked_gossip_plain(W, G, P, Q))):
+                        torch.cuda.synchronize()
+                        rows.append(dict(kernel=kernel, dtype=dname, E=None,
+                                         A=None, N=n, D=D, body=body,
+                                         max_abs_err=close(out, ref, dname)))
+                del W, G
+            for E in MIX_E:
+                Pb = stochastic(E, n=n, dt=dt)
+                for D in MIX_D:
+                    Wb = rnd(E, n, D, dt=dt)
+                    ref = gossip_ops.gossip_mix_batched_plain(Wb, Pb)
+                    for body in ("cores", "tensor"):
+                        out = gossip_ops.gossip_mix_batched_cuda(Wb, Pb, body=body)
+                        torch.cuda.synchronize()
+                        rows.append(dict(kernel="gossip_mix_batched",
+                                         dtype=dname, E=E, N=n, D=D, body=body,
+                                         max_abs_err=close(out, ref, dname)))
+                    del Wb, ref
+    # the CUDA-core body's float32 FMAs against the exact product
+    g64 = torch.Generator().manual_seed(32)
+    W, G = (torch.randn(widest, 16384, generator=g64).to(device)
+            for _ in range(2))
+    Pu = torch.rand(widest, widest, generator=g64).to(device)
+    Qu = (torch.rand(widest, widest, generator=g64) * 0.1).to(device)
+    for kernel, exact, kernel_out, plain_out in (
+            ("gossip_mix", Pu.double().T @ W.double(),
+             gossip_ops.gossip_mix_cuda(W, Pu, body="cores"),
+             gossip_ops.gossip_mix_plain(W, Pu)),
+            ("masked_gossip",
+             Pu.double().T @ W.double() - Qu.double().T @ G.double(),
+             gossip_ops.masked_gossip_cuda(W, G, Pu, Qu, body="cores"),
+             gossip_ops.masked_gossip_plain(W, G, Pu, Qu))):
+        e_k = float((kernel_out.double() - exact).abs().max())
+        e_p = float((plain_out.double() - exact).abs().max())
+        print(f"[2] {kernel} CUDA-core body float32 against float64, N={widest}, "
+              f"D=16384, P uniform on [0, 1)"
+              + (", Q on [0, 0.1)" if kernel == "masked_gossip" else "")
+              + f" (outputs up to {float(exact.abs().max()):.1f}): kernel "
+              f"{e_k:.3e}, plain (cuBLAS) {e_p:.3e}")
+        require(e_k <= TOL["float32"]["atol"],
+                f"{kernel}'s CUDA-core body is {e_k} from the exact product")
+    print(f"[2] dense bodies forced: {len(rows)} comparisons at N {ns} "
+          f"(SMALL_N = {small}), both dtypes, D {MIX_D}, E {MIX_E}")
     return rows
 
 
@@ -630,7 +721,8 @@ def train_mix_row(device) -> list:
         (2 * N * D + N * N) * 2, 2.0 * N * N * D, "bfloat16", PRODUCT_FLOPS)
     row.update(timings(lambda: gossip_ops.gossip_mix_cuda(W, P), TRAIN_MIX_REPS,
                        lambda: gossip_ops.gossip_mix_plain(W, P), 3,
-                       lambda: torch.matmul(P.T, W), launches=2))
+                       lambda: torch.matmul(P.T, W),
+                       launches=gossip_ops.gossip_mix_kernels(N)))
     row["spent_s"].update(spent)
     return [row]
 
@@ -813,7 +905,8 @@ def check_lm_kernels(device) -> list:
         max_abs_err=err, bound_ms=b, bound_by=by, lm=True,
         **timings(lambda: gossip_ops.masked_gossip_cuda(W, G, P, Q), REPS,
                   lambda: gossip_ops.masked_gossip_plain(W, G, P, Q), 20,
-                  lambda: P.T @ W - Q.T @ G, launches=2)))
+                  lambda: P.T @ W - Q.T @ G,
+                  launches=gossip_ops.masked_gossip_kernels(N))))
     del G
     for kind in ("full", "pads"):
         w = torch.randperm(N, generator=gen).to(torch.int32)
@@ -1802,7 +1895,7 @@ def steady_window(trainer, events: int, device) -> dict:
         trainer.run(max_events=events, eval_every=events)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return window_summary(prof, wall, 4)
+    return window_summary(prof, wall, 12)
 
 
 def train_lm(tag: str, what: str, trainer, events: int, eval_every: int,
@@ -1835,8 +1928,8 @@ def train_lm(tag: str, what: str, trainer, events: int, eval_every: int,
             f"{what}: staleness bound {sb}")
     return dict(eps=eps, setup=setup, launches=counts,
                 idle=win["device_idle_share"], busy_ms=win["device_busy_ms"],
-                wall_ms=win["wall_ms"], loss=(res.history[0].loss,
-                                              res.history[-1].loss)), state
+                wall_ms=win["wall_ms"], top=win["top_device_ms"],
+                loss=(res.history[0].loss, res.history[-1].loss)), state
 
 
 def lm_training(device) -> dict:
@@ -2512,8 +2605,9 @@ def main() -> int:
     # -- 2. kernels vs plain versions ---------------------------------------
     t0 = time.perf_counter()
     rows, part_s = [], {}
-    for check in (check_kernels, check_mix_kernels, check_sequence_kernels,
-                  check_lm_kernels, check_prefill_kernels, train_mix_row):
+    for check in (check_kernels, check_mix_kernels, check_dense_bodies,
+                  check_sequence_kernels, check_lm_kernels,
+                  check_prefill_kernels, train_mix_row):
         t1 = time.perf_counter()
         rows += check(device)
         part_s[check.__name__] = time.perf_counter() - t1

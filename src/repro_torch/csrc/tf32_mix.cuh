@@ -13,6 +13,17 @@
 // Gathered, N is the number of lanes A and W may hold any number of rows:
 // row k of the W half is W[gidx[k]], gidx clamped into W's rows.
 //
+// Where it runs.  Only above the rules of its callers: N > SMALL_N
+// (small_mix.cuh, with its crossover table) for gossip_mix and
+// masked_gossip, A > SMALL_A (sparse_gossip.cu).  It pads k to its BK =
+// 32-row slab and j to its BJ = 64-column tile and spends a second launch
+// on the prepass, so at N = 4 it issues 128 products for each useful one:
+// 43.77 ms at phase 26's N = 4, D = 655,360,000 bf16 against a 3.13 ms
+// bound, where the CUDA-core body of small_mix.cuh takes 3.46-3.76 ms
+// (kernel_times.py, chip_smoke.py phase 2; NVIDIA H100 80GB HBM3,
+// 700.00 W).  Its rows are the wide ones: N = 256 (the 2-NN paths) and the
+// batched E = 32 × N = 64.
+//
 // Precision.  The port holds float32 parity with the reference (atol 2e-5
 // / rtol 1e-4), which one TF32 pass does not meet.  Each float32 operand x
 // is split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x − hi) (lo is

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("masked_gossip", "gossip_mix", "sparse_gossip", "scatter_rows",
            "linear_scan", "swa_attention")
-HEADERS = ("common.cuh", "tf32_mix.cuh", "tma.cuh")
+HEADERS = ("common.cuh", "tf32_mix.cuh", "small_mix.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,9 +14,19 @@ per-event step's mixing after its elementwise gradient step), and
 ``gossip_mix_batched`` the same over E stacked problems, out[e] =
 P[e]ᵀ·W[e] for any (E, N, ...) leaf.  Both run their plain versions for
 CPU tensors and launch the ``gossip_mix`` kernels otherwise.  The kernels
-mask ragged N and D themselves, so nothing is padded here; every wrapper
-hands the kernel a scratch, kept per stream and shape, in which it splits
-Pᵀ (and −Qᵀ) into TF32 parts.
+mask ragged N and D themselves, so nothing is padded here.
+
+Each library has two bodies and one rule, ``SMALL_N`` of
+``csrc/small_mix.cuh``: at N ≤ ``SMALL_N`` one launch of a CUDA-core body
+built for bytes, above it the 3xTF32 tensor-core body, a prepass that
+splits Pᵀ (and −Qᵀ) into TF32 parts in a scratch, kept per stream and
+shape, then the product.  The wrappers ask the library which body its
+rule runs (``*_kernels``) and hand a scratch only to that one.  Every
+``*_cuda`` wrapper takes ``body`` (None: the rule; "cores" or "tensor":
+that body, forced, to measure or test both at one N; the CUDA-core body
+takes N ≤ ``CORES_MAX_N``) and counts one launch per call, whichever body
+ran; ``gossip_mix_kernels`` and ``masked_gossip_kernels`` give the device
+kernels a call launches.  Nothing falls back: a body that fails raises.
 """
 from __future__ import annotations
 
@@ -28,14 +38,49 @@ from repro_torch.kernels import build
 
 _PROTOTYPES = {
     "masked_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 6
-    + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
+    "masked_gossip_kernels": (ctypes.c_int,),
 }
 _MIX_PROTOTYPES = {
     "gossip_mix_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 4
-    + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
     "gossip_mix_batched_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 4
-    + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+    "gossip_mix_kernels": (ctypes.c_int,),
 }
+# a caller may force the CUDA-core body up to N = CORES_MAX_N
+# (csrc/small_mix.cuh's MAX_RB, a register limit); the rule itself lives
+# in the C dispatch alone (``*_kernels`` below)
+CORES_MAX_N = 32
+# the C entries' body codes: the dispatch rule, or one body forced
+_BODIES = {None: 0, "cores": 1, "tensor": 2}
+
+
+def _body(what: str, body, N: int) -> int:
+    """The C entry's code of ``body`` at N rows; raises ValueError, before
+    anything is built or launched, for an unknown body or for "cores"
+    above ``CORES_MAX_N``."""
+    if body not in _BODIES:
+        raise ValueError(f"{what}: body must be one of "
+                         f"{sorted(map(str, _BODIES))}, got {body!r}")
+    if body == "cores" and N > CORES_MAX_N:
+        raise ValueError(f"{what}: the CUDA-core body takes N <= "
+                         f"{CORES_MAX_N}, got N = {N}")
+    return _BODIES[body]
+
+
+def gossip_mix_kernels(N: int) -> int:
+    """Device kernels one ``gossip_mix_cuda`` or ``gossip_mix_batched_cuda``
+    call launches at N rows under the rule: 1 (the CUDA-core body) or 2
+    (the split prepass and the tensor-core body).  Builds the library if
+    needed."""
+    return build.load("gossip_mix", _MIX_PROTOTYPES).gossip_mix_kernels(N)
+
+
+def masked_gossip_kernels(N: int) -> int:
+    """Device kernels one ``masked_gossip_cuda`` call launches at N rows
+    under the rule, as :func:`gossip_mix_kernels`."""
+    return build.load("masked_gossip", _PROTOTYPES).masked_gossip_kernels(N)
 
 
 _SCRATCH: dict = {}
@@ -43,7 +88,7 @@ _SCRATCH: dict = {}
 
 def _split_p_scratch(E: int, N: int, device: torch.device,
                      pairs: int = 1) -> torch.Tensor:
-    """Scratch of the tensor-core kernels: Pᵀ (after −Qᵀ, for ``pairs=2``)
+    """Scratch of the tensor-core body: Pᵀ (after −Qᵀ, for ``pairs=2``)
     split into TF32 hi and lo parts, (E, 2, N, pairs·Kp) float32 with
     Kp = N rounded up to 32.
 
@@ -72,13 +117,19 @@ def masked_gossip_plain(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
 
 
 def masked_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
-                       Q: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: out = Pᵀ·W − Qᵀ·G, W/G (N, D), P/Q (N, N)."""
-    dev = build.check_operands("masked_gossip",
-                               {"W": W, "G": G, "P": P, "Q": Q})
+                       Q: torch.Tensor, *, body: str | None = None
+                       ) -> torch.Tensor:
+    """The CUDA kernel: out = Pᵀ·W − Qᵀ·G, W/G (N, D), P/Q (N, N).
+
+    The C dispatch picks the body from N (the CUDA-core body at N ≤
+    small_mix.cuh's ``SMALL_N``); ``body`` ("cores": the CUDA-core body, N ≤
+    ``CORES_MAX_N`` only; "tensor": the tensor-core body) forces one."""
     if W.dim() != 2:
         raise ValueError(f"masked_gossip: W must be (N, D), got {tuple(W.shape)}")
     N, D = W.shape
+    code = _body("masked_gossip", body, N)
+    dev = build.check_operands("masked_gossip",
+                               {"W": W, "G": G, "P": P, "Q": Q})
     if G.shape != W.shape or P.shape != (N, N) or Q.shape != (N, N):
         raise ValueError(
             f"masked_gossip: shapes W{tuple(W.shape)} G{tuple(G.shape)} "
@@ -87,11 +138,13 @@ def masked_gossip_cuda(W: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.load("masked_gossip", _PROTOTYPES)
-    scratch = _split_p_scratch(1, N, dev, pairs=2)
+    scratch = (_split_p_scratch(1, N, dev, pairs=2).data_ptr()
+               if code == 2 or (code == 0 and lib.masked_gossip_kernels(N) == 2)
+               else None)
     build.launch(
         lib, "masked_gossip_launch", dev, build.DTYPE_CODES[W.dtype],
         W.data_ptr(), G.data_ptr(), P.data_ptr(), Q.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, D)
+        scratch, N, D, code)
     masked_gossip_cuda.launches += 1
     return out
 
@@ -131,21 +184,26 @@ def gossip_mix_plain(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nd,nj->jd", W.to(f32), P.to(f32)).to(W.dtype)
 
 
-def gossip_mix_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: out = Pᵀ·W, W (N, D), P (N, N)."""
-    dev = build.check_operands("gossip_mix", {"W": W, "P": P})
+def gossip_mix_cuda(W: torch.Tensor, P: torch.Tensor, *,
+                    body: str | None = None) -> torch.Tensor:
+    """The CUDA kernel: out = Pᵀ·W, W (N, D), P (N, N); ``body`` as in
+    :func:`masked_gossip_cuda`."""
     if W.dim() != 2 or P.shape != (W.shape[0], W.shape[0]):
         raise ValueError(f"gossip_mix: shapes W{tuple(W.shape)} "
                          f"P{tuple(P.shape)} are not (N, D) and (N, N)")
     N, D = W.shape
+    code = _body("gossip_mix", body, N)
+    dev = build.check_operands("gossip_mix", {"W": W, "P": P})
     out = torch.empty_like(W)
     if out.numel() == 0:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
-    scratch = _split_p_scratch(1, N, dev)
+    scratch = (_split_p_scratch(1, N, dev).data_ptr()
+               if code == 2 or (code == 0 and lib.gossip_mix_kernels(N) == 2)
+               else None)
     build.launch(
         lib, "gossip_mix_launch", dev, build.DTYPE_CODES[W.dtype],
-        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, D)
+        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch, N, D, code)
     gossip_mix_cuda.launches += 1
     return out
 
@@ -173,22 +231,26 @@ def gossip_mix_batched_plain(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     return torch.einsum("end,enj->ejd", W.to(f32), P.to(f32)).to(W.dtype)
 
 
-def gossip_mix_batched_cuda(W: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: out[e] = P[e]ᵀ·W[e], W (E, N, D), P (E, N, N)."""
-    dev = build.check_operands("gossip_mix_batched", {"W": W, "P": P})
+def gossip_mix_batched_cuda(W: torch.Tensor, P: torch.Tensor, *,
+                            body: str | None = None) -> torch.Tensor:
+    """The CUDA kernel: out[e] = P[e]ᵀ·W[e], W (E, N, D), P (E, N, N);
+    ``body`` as in :func:`masked_gossip_cuda`."""
     if W.dim() != 3 or P.shape != (W.shape[0], W.shape[1], W.shape[1]):
         raise ValueError(f"gossip_mix_batched: shapes W{tuple(W.shape)} "
                          f"P{tuple(P.shape)} are not (E, N, D) and (E, N, N)")
     E, N, D = W.shape
+    code = _body("gossip_mix_batched", body, N)
+    dev = build.check_operands("gossip_mix_batched", {"W": W, "P": P})
     out = torch.empty_like(W)
     if out.numel() == 0:
         return out
     lib = build.load("gossip_mix", _MIX_PROTOTYPES)
-    scratch = _split_p_scratch(E, N, dev)
+    scratch = (_split_p_scratch(E, N, dev).data_ptr()
+               if code == 2 or (code == 0 and lib.gossip_mix_kernels(N) == 2)
+               else None)
     build.launch(
         lib, "gossip_mix_batched_launch", dev, build.DTYPE_CODES[W.dtype],
-        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch.data_ptr(), E, N,
-        D)
+        W.data_ptr(), P.data_ptr(), out.data_ptr(), scratch, E, N, D, code)
     gossip_mix_batched_cuda.launches += 1
     return out
 

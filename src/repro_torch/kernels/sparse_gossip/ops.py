@@ -30,15 +30,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gossip_mix.ops import _split_p_scratch
+from repro_torch.kernels.gossip_mix.ops import _BODIES, _split_p_scratch
 
 _GOSSIP_PROTOTYPES = {
     "sparse_gossip_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 7
     + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
     "sparse_gossip_kernels": (ctypes.c_int,),
 }
-# the C entry's body codes: the dispatch rule, or one body forced
-_BODIES = {None: 0, "cores": 1, "tensor": 2}
 _SCATTER_PROTOTYPES = {
     "scatter_rows_launch": (ctypes.c_int,) + (ctypes.c_void_p,) * 3
     + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),

@@ -11,8 +11,10 @@ width and depth, ``--workers 4 --seq 4096 --global-batch 8 --steps 3
 step issues ~10^6 operators, and recording them on the host too makes the
 window take minutes); the earlier ones pay the one-time costs.  Reports
 the steps' host-clock seconds, the profiled step's device busy and idle
-share, device time per kernel, the number of device kernels launched and
-the step's peak device memory.  Needs a CUDA device.
+share, device time of the 15 kernels that take most and, by name, of the
+port's own kernels (the ``repro`` namespace of ``csrc/``), the number of
+device kernels launched and the step's peak device memory.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -48,6 +50,9 @@ def main(argv=None) -> int:
 
     def on_trace_ready(p):
         summary.update(window_summary(p, seconds[-1], 15),
+                       port_device_ms=[
+                           (e.key, e.count, e.self_device_time_total / 1e3)
+                           for e in p.key_averages() if "repro::" in e.key],
                        device_kernels=len(device_events(p)),
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         del summary["top_host_ms"]      # no host activity recorded

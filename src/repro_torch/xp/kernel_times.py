@@ -15,13 +15,23 @@ this file's tree) and with the timing functions of this file's tree
 - ``scatter_rows`` at the rungs A = 2, 16, 64, 256 (all lanes valid)
   at each leaf width, float32, beside ``index_copy_``;
 - ``sparse_gossip`` at D = 65536, float32, gathered from N = 256: all
-  lanes valid at each rung (``full``) and a merged row of the main path at
-  A = 64 (``merged``, ``chip_smoke.lanes``), beside ``index_select`` and
+  lanes valid at each rung (``full``), a merged row of the main path at
+  A = 64 (``merged``, ``chip_smoke.lanes``) and, at the 100m preset's
+  widest leaf, A = 8 of N = 8 (``lm``), beside ``index_select`` and
   two matrix products; and, where the tree's wrapper can force a body
   (``body=``), both bodies at A = 8-64 (``crossover``: the rows that set
   the dispatch rule of ``csrc/sparse_gossip.cu``);
 - ``gossip_mix`` at N = 256 over the leaf widths and
   ``gossip_mix_batched`` at E = 32, N = 64, D = 65536, float32;
+- ``gossip_mix`` and ``masked_gossip`` at D = 65536, float32 and
+  bfloat16, N = 2-64 (``crossover``: the rows that set the dense rule,
+  ``SMALL_N`` of ``csrc/small_mix.cuh``): both bodies where the tree's
+  wrappers can force one (``body=``; the CUDA-core body to its
+  ``CORES_MAX_N``), else the tree's rule; and at the LM paths' widths
+  (``lm``): ``gossip_mix`` at
+  phase 26's N = 4 of D = 655,360,000 and ``masked_gossip`` at the 100m
+  preset's N = 8 of D = 21,233,664, both dtypes, beside the library call
+  in bfloat16 and float32 respectively;
 - ``swa_attention`` in bf16 through its (B·H, T, dh) entry at the seven
   no-window prefill shapes of ``chip_smoke.py`` phase 2 (qwen3-8b at
   ``SWA_DENSE``, then B = 4 at the longer serve wave, T = 3561, for each
@@ -140,6 +150,18 @@ def measure(smoke, timing) -> dict:
             out["sparse_gossip"][f"A={A},crossover,{body}"] = figures(
                 lambda: sparse_ops.sparse_gossip_cuda(W, G, Ps, Qs, gidx,
                                                       body=body))
+    # sparse_gossip at the 100m preset's widest leaf, A = 8 lanes of N = 8
+    n, d = smoke.LM_N, smoke.LM_LEAF_D
+    W, G = rnd(n, d, scale=0.1), rnd(n, d, scale=0.5)
+    Ps = torch.rand(n, n, generator=gen) + torch.eye(n)
+    Ps = (Ps / Ps.sum(1, keepdim=True)).to(dev)
+    Qs = (0.2 * Ps).contiguous()
+    gidx = torch.randperm(n, generator=gen).to(dev, torch.int32)
+    out["sparse_gossip"][f"A={n},N={n},D={d},lm"] = figures(
+        lambda: sparse_ops.sparse_gossip_cuda(W, G, Ps, Qs, gidx),
+        lambda: Ps.T @ W.index_select(0, gidx.long()) - Qs.T @ G)
+    del W, G
+    measure_dense(smoke, timing, gossip_ops, out, dev, gen, figures, flush)
     E, n, D = smoke.BATCHED_MAIN
     Wb = rnd(E, n, D)
     Pb = torch.rand(E, n, n, generator=gen)
@@ -148,6 +170,77 @@ def measure(smoke, timing) -> dict:
         lambda: gossip_ops.gossip_mix_batched_cuda(Wb, Pb),
         lambda: torch.bmm(Pb.transpose(1, 2), Wb))}
     return out
+
+
+def measure_dense(smoke, timing, gossip_ops, out, dev, gen, figures,
+                  flush) -> None:
+    """The dense products' ``crossover`` and ``lm`` rows (see the module's
+    docstring) into ``out["gossip_mix"]`` and ``out["masked_gossip"]``."""
+    import torch
+    forced = "body" in inspect.signature(gossip_ops.gossip_mix_cuda).parameters
+    widest = getattr(gossip_ops, "CORES_MAX_N", 0)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def operands(n, d, dt):
+        dg = torch.Generator(device=dev).manual_seed(n + d)
+        W = torch.randn(n, d, generator=dg, device=dev).to(dt)
+        G = (torch.randn(n, d, generator=dg, device=dev) * 0.5).to(dt)
+        P = torch.rand(n, n, generator=gen) + torch.eye(n)
+        P = (P / P.sum(1, keepdim=True)).to(dev, dt)
+        Q = (0.2 * P).contiguous()
+        return W, G, P, Q
+
+    def bodies(n):
+        if not forced:
+            return {"rule": {}}
+        return {b: dict(body=b) for b in ("cores", "tensor")
+                if b == "tensor" or n <= widest}
+
+    for dname, dt in dts.items():
+        for n in (2, 4, 8, 16, 24, 32, 48, 64):
+            W, G, P, Q = operands(n, 65536, dt)
+            for b, kw in bodies(n).items():
+                key = f"N={n},D=65536,{dname},crossover,{b}"
+                out["gossip_mix"][key] = figures(
+                    lambda: gossip_ops.gossip_mix_cuda(W, P, **kw))
+                out["masked_gossip"][key] = figures(
+                    lambda: gossip_ops.masked_gossip_cuda(W, G, P, Q, **kw))
+            del W, G
+    reps = getattr(smoke, "TRAIN_MIX_REPS", 5)
+
+    def device_or_none(fn) -> dict:
+        # the profiler has dropped events of a few-call window at these
+        # shapes (a call whose events are not whole then fails every try):
+        # the row keeps the CUDA-event time and says why it has no other
+        try:
+            return dict(device_ms=timing.device_ms(fn, reps, flush=flush))
+        except RuntimeError as err:
+            return dict(device_ms=None, device_ms_error=str(err)[:200])
+    for kernel, (n, d), lib_dtype in (
+            ("gossip_mix", smoke.TRAIN_MIX, "bfloat16"),
+            ("masked_gossip", (smoke.LM_N, smoke.LM_LEAF_D), "float32")):
+        for dname, dt in dts.items():
+            W, G, P, Q = operands(n, d, dt)
+            if kernel == "gossip_mix":
+                del G
+                call = lambda **kw: gossip_ops.gossip_mix_cuda(W, P, **kw)
+                library = lambda: torch.matmul(P.T, W)
+            else:
+                call = lambda **kw: gossip_ops.masked_gossip_cuda(W, G, P, Q, **kw)
+                library = lambda: P.T @ W - Q.T @ G
+            for b, kw in bodies(n).items():
+                row = dict(device_or_none(lambda: call(**kw)),
+                           ms=timing.time_ms(lambda: call(**kw), reps))
+                if dname == lib_dtype and b != "tensor":
+                    lib = device_or_none(library)
+                    row.update(library_device_ms=lib.pop("device_ms"),
+                               library_ms=timing.time_ms(library, reps),
+                               **{f"library_{k}": v for k, v in lib.items()})
+                out[kernel][f"N={n},D={d},{dname},lm,{b}"] = row
+            del W, P, Q
+            if kernel == "masked_gossip":
+                del G
+            torch.cuda.empty_cache()
 
 
 def swa_shapes(smoke) -> dict:

@@ -179,6 +179,129 @@ def test_gossip_mix_batched_kernel_matches_plain(cuda, e, n, d, dt):
                                                               P[k].contiguous()))
 
 
+def _dense_operands(g, n, d, dt, cuda, pairs, lead=()):
+    """W (and G) (*lead, n, d), P (and Q, scale 0.1) (*lead, n, n), on the
+    card in dtype dt."""
+    W = torch.randn(*lead, n, d, generator=g).to(cuda, dt)
+    P = torch.rand(*lead, n, n, generator=g).to(cuda, dt)
+    if pairs == 1:
+        return W, P
+    G = torch.randn(*lead, n, d, generator=g).to(cuda, dt)
+    Q = (torch.rand(*lead, n, n, generator=g) * 0.1).to(cuda, dt)
+    return W, G, P, Q
+
+
+def _dense_call(kernel, ops, body):
+    """The forced-body kernel call and the plain version of ``kernel`` on
+    ``ops`` (from :func:`_dense_operands`)."""
+    if kernel == "masked_gossip":
+        return (gossip_ops.masked_gossip_cuda(*ops, body=body),
+                gossip_ops.masked_gossip_plain(*ops))
+    if kernel == "gossip_mix":
+        return (gossip_ops.gossip_mix_cuda(*ops, body=body),
+                gossip_ops.gossip_mix_plain(*ops))
+    return (gossip_ops.gossip_mix_batched_cuda(*ops, body=body),
+            gossip_ops.gossip_mix_batched_plain(*ops))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 10, 511, 4097, 65536])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 17, 32])
+@pytest.mark.parametrize("body", ["cores", "tensor"])
+@pytest.mark.parametrize("kernel", ["gossip_mix", "masked_gossip"])
+def test_dense_bodies_match_plain(cuda, kernel, body, n, d, dt):
+    """At every N the rule may give either body, each, forced, holds the
+    plain version, ragged D included; one launch counted per call."""
+    g = torch.Generator().manual_seed(11 * n + d)
+    ops = _dense_operands(g, n, d, dt, cuda, 2 if kernel == "masked_gossip" else 1)
+    wrapper = getattr(gossip_ops, f"{kernel}_cuda")
+    before = wrapper.launches
+    out, ref = _dense_call(kernel, ops, body)
+    assert wrapper.launches == before + 1
+    _close(out, ref, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,d", [(1, 4, 4097), (7, 8, 511), (32, 4, 65536),
+                                   (32, 32, 10), (7, 1, 1000)])
+@pytest.mark.parametrize("body", ["cores", "tensor"])
+def test_batched_bodies_match_plain(cuda, body, e, n, d, dt):
+    """The batched mix at small N: the problem index on the grid's y."""
+    g = torch.Generator().manual_seed(e * n + d)
+    ops = _dense_operands(g, n, d, dt, cuda, 1, lead=(e,))
+    out, ref = _dense_call("gossip_mix_batched", ops, body)
+    _close(out, ref, dt)
+    if body == "cores":
+        for k in range(e):   # each problem is its own single mix
+            assert torch.equal(out[k], gossip_ops.gossip_mix_cuda(
+                ops[0][k].contiguous(), ops[1][k].contiguous(), body=body))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["gossip_mix", "masked_gossip"])
+def test_cores_body_offset_views(cuda, kernel, dt):
+    """Operands off a 16-byte boundary: the CUDA-core body loads element
+    by element instead of copying chunks."""
+    n, d = 8, 4096
+    g = torch.Generator().manual_seed(9)
+    W = _offset(n, d, g, cuda, dt)
+    P = torch.rand(n, n, generator=g).to(cuda, dt)
+    ops = (W, P)
+    if kernel == "masked_gossip":
+        ops = (W, _offset(n, d, g, cuda, dt, 0), P,
+               (torch.rand(n, n, generator=g) * 0.1).to(cuda, dt))
+    assert W.data_ptr() % 16
+    out, ref = _dense_call(kernel, ops, "cores")
+    _close(out, ref, dt)
+
+
+def test_dense_rule_counts_and_refusals(cuda):
+    """The rule's device kernels a call (1 at N ≤ SMALL_N, 2 above), one
+    launch counted per call whichever body ran, and "cores" above the N
+    it takes (CORES_MAX_N) refused before any launch."""
+    small = max(n for n in range(1, gossip_ops.CORES_MAX_N + 1)
+                if gossip_ops.gossip_mix_kernels(n) == 1)
+    for count in (gossip_ops.gossip_mix_kernels, gossip_ops.masked_gossip_kernels):
+        assert [count(n) for n in range(1, 257)] == [1] * small + [2] * (256 - small)
+    g = torch.Generator().manual_seed(5)
+    for n in (small, small + 1):
+        W, P = _dense_operands(g, n, 100, torch.float32, cuda, 1)
+        before = gossip_ops.gossip_mix_cuda.launches
+        gossip_ops.gossip_mix_cuda(W, P)
+        gossip_ops.gossip_mix(W, P)
+        assert gossip_ops.gossip_mix_cuda.launches == before + 2
+    W, P = _dense_operands(g, gossip_ops.CORES_MAX_N + 1, 100, torch.float32,
+                           cuda, 1)
+    launches = (gossip_ops.gossip_mix_cuda.launches,
+                gossip_ops.masked_gossip_cuda.launches,
+                gossip_ops.gossip_mix_batched_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA-core body"):
+        gossip_ops.gossip_mix_cuda(W, P, body="cores")
+    with pytest.raises(ValueError, match="CUDA-core body"):
+        gossip_ops.masked_gossip_cuda(W, W, P, P, body="cores")
+    with pytest.raises(ValueError, match="CUDA-core body"):
+        gossip_ops.gossip_mix_batched_cuda(W[None], P[None], body="cores")
+    assert launches == (gossip_ops.gossip_mix_cuda.launches,
+                        gossip_ops.masked_gossip_cuda.launches,
+                        gossip_ops.gossip_mix_batched_cuda.launches)
+
+
+@pytest.mark.parametrize("n", [4, 8, 32])
+@pytest.mark.parametrize("kernel", ["gossip_mix", "masked_gossip"])
+def test_cores_body_stays_near_the_exact_product(cuda, kernel, n):
+    """Unnormalised P (outputs of order 10 at N = 32) and a Q of scale
+    0.1: the CUDA-core body's float32 FMAs stay within 2e-5 of the float64
+    product."""
+    g = torch.Generator().manual_seed(n)
+    ops = _dense_operands(g, n, 16384, torch.float32, cuda,
+                          2 if kernel == "masked_gossip" else 1)
+    exact = ops[-2 if kernel == "masked_gossip" else 1].double().T @ ops[0].double()
+    if kernel == "masked_gossip":
+        exact -= ops[3].double().T @ ops[1].double()
+    out, _ = _dense_call(kernel, ops, "cores")
+    assert float((out.double() - exact).abs().max()) <= 2e-5
+
+
 def _sparse_lanes(g, a, n, kind):
     """(a,) int32 workers of a carry of n rows: distinct, worker 0 active.
     ``pads``: about a third of the lanes -1, in any position; ``merged``:

@@ -8,6 +8,8 @@ and against its Pallas ops run in interpret mode.  Tolerances are
 ``tests/test_kernels.py:_tol``'s: float32 atol 2e-5 / rtol 1e-4 (sums in a
 different order), bfloat16 2e-2 (one rounding of the output).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -370,6 +372,55 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
         else:
             sparse_ops.scatter_rows_cuda(W, W, idx)
     assert sparse_ops.scatter_rows_cuda.launches == 0
+
+
+def _dense_cuda_call(call, n, body):
+    """One dense wrapper on CPU operands of n rows with ``body``."""
+    W, P = torch.zeros(n, 8), torch.eye(n)
+    if call == "masked":
+        return gossip_ops.masked_gossip_cuda(W, W, P, P, body=body)
+    if call == "mix":
+        return gossip_ops.gossip_mix_cuda(W, P, body=body)
+    return gossip_ops.gossip_mix_batched_cuda(W[None], P[None], body=body)
+
+
+@pytest.mark.parametrize("call", ["masked", "mix", "batched"])
+@pytest.mark.parametrize("body,n,match", [
+    ("wgmma", 4, "body must be one of"),
+    ("cores", gossip_ops.CORES_MAX_N + 1, "CUDA-core body takes N <= "),
+])
+def test_dense_wrappers_refuse_a_body_before_building(monkeypatch, call, body,
+                                                      n, match):
+    """An unknown body, and the CUDA-core body above the N it takes, raise
+    ValueError before the library is loaded (or a device is checked)."""
+    def no_load(*args, **kw):
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(build, "load", no_load)
+    with pytest.raises(ValueError, match=match):
+        _dense_cuda_call(call, n, body)
+    assert (gossip_ops.masked_gossip_cuda.launches,
+            gossip_ops.gossip_mix_cuda.launches,
+            gossip_ops.gossip_mix_batched_cuda.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("body", [None, "cores", "tensor"])
+def test_dense_wrappers_take_every_body_up_to_the_device_check(body):
+    """A body that takes N goes on to the operand checks: CPU tensors are
+    refused there, never run by a plain version."""
+    for call in ("masked", "mix", "batched"):
+        with pytest.raises(ValueError, match="on one CUDA device"):
+            _dense_cuda_call(call, gossip_ops.CORES_MAX_N, body)
+
+
+def test_cores_max_n_is_the_sources_max_rb():
+    """The wrappers' CORES_MAX_N (the widest N a forced "cores" takes) is
+    the C dispatch's MAX_RB, read from csrc/small_mix.cuh, and the rule's
+    SMALL_N lies within it."""
+    text = (build.CSRC / "small_mix.cuh").read_text()
+    assert re.findall(r"constexpr int MAX_RB = (\d+);", text) == [
+        str(gossip_ops.CORES_MAX_N)]
+    small = re.findall(r"constexpr int SMALL_N = (\d+);", text)
+    assert len(small) == 1 and 1 <= int(small[0]) <= gossip_ops.CORES_MAX_N
 
 
 def test_build_names_a_content_hashed_library_per_source():
