@@ -55,7 +55,10 @@ Observability, as in the reference (:mod:`repro_torch.obs`):
 - ``run_log``: a JSONL :class:`~repro_torch.obs.runlog.RunLogger`;
 - ``sanitize``: the run inside
   :func:`~repro_torch.check.runtime.sanitized`, where only explicit
-  fetches reach the host.
+  fetches reach the host;
+- host spans (:mod:`repro_torch.obs.spans`: ``sim.run``, ``sim.events``,
+  ``sim.pack``, ``sim.dispatch``, ``sim.eval``, ``sim.finish``), recorded
+  while a torch profiler runs, on its clock.
 """
 from __future__ import annotations
 
@@ -81,6 +84,7 @@ from repro_torch.obs.metrics import (dense_metrics_update,
                                      fused_metrics_fold, init_metrics,
                                      metrics_summary)
 from repro_torch.obs.runlog import RunLogger
+from repro_torch.obs.spans import span
 from repro_torch.obs.trace import TraceRecorder, drain_fused_payload
 from repro_torch.utils.tree import tree_size, tree_stack
 
@@ -377,21 +381,27 @@ class DecentralizedTrainer:
     def _dispatch_block(self, batch: EventBatch, rounds: int) -> None:
         """Advance (W, S, y, ptr) -- and, with telemetry, the metrics --
         through one dense block."""
-        self._log.log("block_dispatch", mode="scan", events=batch.E,
-                      rounds=rounds)
-        args = (self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
-                batch.P, batch.grad_workers, batch.restart_workers,
-                self._etas(rounds + np.arange(batch.E)))
-        if not self.telemetry:
-            self.W, self.S, self.y, self._ptr = masked_gossip_scan(*args)
-            return
-        fin = (batch.finish if batch.finish is not None
-               else np.broadcast_to(batch.times[:, None], (batch.E, self.n)))
-        (self.W, self.S, self.y, self._ptr,
-         self._metrics) = masked_gossip_scan(
-            *args, M=self._metrics,
-            tel=(batch.times, fin, rounds + np.arange(batch.E),
-                 batch.param_copies_sent))
+        with span("sim.dispatch", events=batch.E) as counts:
+            if counts is not None:
+                counts["worker_steps"] = int(np.count_nonzero(
+                    batch.grad_workers))
+            self._log.log("block_dispatch", mode="scan", events=batch.E,
+                          rounds=rounds)
+            args = (self.W, self.S, self.y, self._ptr, self._pools,
+                    self.grad_fn, batch.P, batch.grad_workers,
+                    batch.restart_workers,
+                    self._etas(rounds + np.arange(batch.E)))
+            if not self.telemetry:
+                self.W, self.S, self.y, self._ptr = masked_gossip_scan(*args)
+                return
+            fin = (batch.finish if batch.finish is not None
+                   else np.broadcast_to(batch.times[:, None],
+                                        (batch.E, self.n)))
+            (self.W, self.S, self.y, self._ptr,
+             self._metrics) = masked_gossip_scan(
+                *args, M=self._metrics,
+                tel=(batch.times, fin, rounds + np.arange(batch.E),
+                     batch.param_copies_sent))
 
     # -- fused path --------------------------------------------------------
     def _ensure_fused(self, max_events: Optional[int] = None) -> None:
@@ -421,26 +431,30 @@ class DecentralizedTrainer:
         merged rows) carries the matching per-lane source-event clocks.
         """
         E, A = batch.workers.shape
-        self._log.log("block_dispatch", mode="sparse_scan", events=E,
-                      lanes=A, rounds=rounds, merged=lane_off is not None)
-        offsets = np.arange(E) if lane_off is None else lane_off
-        etas = self._etas(rounds + offsets)
-        args = (self.W, self.S, self.y, self._ptr, self._pools, self.grad_fn,
-                batch.workers, batch.P_sub, batch.grad_workers,
-                batch.restart_workers, etas)
-        if not self.telemetry:
-            self.W, self.S, self.y, self._ptr = sparse_gossip_scan(*args)
-            return
-        # per-lane event indices and clocks: an unmerged row's lanes share
-        # its event; a merged row's lanes keep their source event's
-        ks = np.broadcast_to((rounds + offsets).reshape(E, -1), (E, A))
-        ts = (np.broadcast_to(batch.times[:, None], (E, A))
-              if lane_off is None else lane_ts)
-        fin = batch.finish if batch.finish is not None else ts
-        (self.W, self.S, self.y, self._ptr,
-         self._metrics) = sparse_gossip_scan(
-            *args, M=self._metrics,
-            tel=(ts, fin, ks, batch.param_copies_sent))
+        with span("sim.dispatch", events=E) as counts:
+            if counts is not None:
+                counts["worker_steps"] = int(np.count_nonzero(
+                    batch.grad_workers))
+            self._log.log("block_dispatch", mode="sparse_scan", events=E,
+                          lanes=A, rounds=rounds, merged=lane_off is not None)
+            offsets = np.arange(E) if lane_off is None else lane_off
+            etas = self._etas(rounds + offsets)
+            args = (self.W, self.S, self.y, self._ptr, self._pools,
+                    self.grad_fn, batch.workers, batch.P_sub,
+                    batch.grad_workers, batch.restart_workers, etas)
+            if not self.telemetry:
+                self.W, self.S, self.y, self._ptr = sparse_gossip_scan(*args)
+                return
+            # per-lane event indices and clocks: an unmerged row's lanes
+            # share its event; a merged row's lanes keep their source event's
+            ks = np.broadcast_to((rounds + offsets).reshape(E, -1), (E, A))
+            ts = (np.broadcast_to(batch.times[:, None], (E, A))
+                  if lane_off is None else lane_ts)
+            fin = batch.finish if batch.finish is not None else ts
+            (self.W, self.S, self.y, self._ptr,
+             self._metrics) = sparse_gossip_scan(
+                *args, M=self._metrics,
+                tel=(ts, fin, ks, batch.param_copies_sent))
 
     def _events_per_step(self, A: int) -> int:
         """Events merged per row at lane width ``A``: ``events_per_step``
@@ -464,7 +478,8 @@ class DecentralizedTrainer:
                                             rounds + start)
                 start = stop
             return
-        merged, lane_off = merge_event_groups(batch, K)
+        with span("sim.pack", events=batch.E):
+            merged, lane_off = merge_event_groups(batch, K)
         g_cap = max(1, cap // K)
         # telemetry: the lanes' source-event clocks, gathered once a chunk
         lane_ts = batch.times[lane_off] if self.telemetry else None
@@ -616,37 +631,38 @@ class DecentralizedTrainer:
     def run(self, max_events: Optional[int] = None,
             max_time: Optional[float] = None,
             eval_every: int = 10) -> RunResult:
-        if not (max_events or max_time):
-            raise ValueError("bound the run by events or virtual time")
-        if self.telemetry:
-            # fresh counters per run: event indices (the staleness clock)
-            # restart at 0 every run
-            self._metrics = init_metrics(self.n, self.device)
-            self._bucket_occ = {}
-        self._fused_payload = []
-        if self.trace:
-            self._trace = TraceRecorder(self.n)
-        self._log.log("run_start", algorithm=self.scheduler.name, n=self.n,
-                      mode=self.mode, max_events=max_events,
-                      max_time=max_time, eval_every=eval_every,
-                      dtype=str(self.dtype).replace("torch.", ""),
-                      telemetry=self.telemetry, trace=self.trace)
-        if self.mode == "fused" or getattr(self.scheduler, "horizon", None):
-            self._log.warn_once(
-                "rng_order",
-                "event stream is a different-but-deterministic RNG-order "
-                "realization (horizon batching / fused generation): "
-                "distributionally identical to the exact per-event stream, "
-                "not bit-identical to it.", warn=False)
-        with self._maybe_sanitized():
-            if self.mode == "fused":
-                return self._run_fused(max_events, max_time, eval_every)
-            if self.mode == "per_event":
-                return self._run_per_event(max_events, max_time, eval_every)
-            if self.mode == "sparse_scan":
-                return self._run_sparse_stream(max_events, max_time,
-                                               eval_every)
-            return self._run_scan(max_events, max_time, eval_every)
+        with span("sim.run"):
+            if not (max_events or max_time):
+                raise ValueError("bound the run by events or virtual time")
+            if self.telemetry:
+                # fresh counters per run: event indices (the staleness clock)
+                # restart at 0 every run
+                self._metrics = init_metrics(self.n, self.device)
+                self._bucket_occ = {}
+            self._fused_payload = []
+            if self.trace:
+                self._trace = TraceRecorder(self.n)
+            self._log.log("run_start", algorithm=self.scheduler.name, n=self.n,
+                          mode=self.mode, max_events=max_events,
+                          max_time=max_time, eval_every=eval_every,
+                          dtype=str(self.dtype).replace("torch.", ""),
+                          telemetry=self.telemetry, trace=self.trace)
+            if self.mode == "fused" or getattr(self.scheduler, "horizon", None):
+                self._log.warn_once(
+                    "rng_order",
+                    "event stream is a different-but-deterministic RNG-order "
+                    "realization (horizon batching / fused generation): "
+                    "distributionally identical to the exact per-event stream, "
+                    "not bit-identical to it.", warn=False)
+            with self._maybe_sanitized():
+                if self.mode == "fused":
+                    return self._run_fused(max_events, max_time, eval_every)
+                if self.mode == "per_event":
+                    return self._run_per_event(max_events, max_time, eval_every)
+                if self.mode == "sparse_scan":
+                    return self._run_sparse_stream(max_events, max_time,
+                                                   eval_every)
+                return self._run_scan(max_events, max_time, eval_every)
 
     @contextlib.contextmanager
     def _maybe_sanitized(self):
@@ -684,30 +700,34 @@ class DecentralizedTrainer:
         stream = self.scheduler.events()
         exhausted = False
         while not exhausted:
-            try:
-                ev = next(stream)
-            except StopIteration:  # finite custom stream: flush what we have
-                ev = None
-            if (ev is None
-                    or (max_events is not None and ev.k >= max_events)
-                    or (max_time is not None and ev.time > max_time)):
-                exhausted = True
-            else:
-                buf.append(ev)
-                k, t = ev.k, ev.time
-                comm += ev.param_copies_sent
-                active_sizes.append(ev.n_active)
-            # snap block boundaries to the eval grid
-            until_eval = eval_every - rounds % eval_every
-            flush = len(buf) >= min(target, until_eval) or (exhausted and buf)
-            if not flush:
-                continue
+            with span("sim.events") as counts:
+                # a block ends at the eval grid
+                fill = min(target, eval_every - rounds % eval_every)
+                while len(buf) < fill:
+                    try:
+                        ev = next(stream)
+                    except StopIteration:  # finite custom stream: flush
+                        ev = None
+                    if (ev is None
+                            or (max_events is not None and ev.k >= max_events)
+                            or (max_time is not None and ev.time > max_time)):
+                        exhausted = True
+                        break
+                    buf.append(ev)
+                    k, t = ev.k, ev.time
+                    comm += ev.param_copies_sent
+                    active_sizes.append(ev.n_active)
+                if counts is not None:
+                    counts["events"] = len(buf)
+            if not buf:
+                break
             if self.trace:
                 # recorded before packing: the same object events the
                 # per-event path replays
                 self._trace.record_events(buf)
-            self._dispatch_block(EventBatch.from_events(buf, edge_bound=bound),
-                                 rounds)
+            with span("sim.pack", events=len(buf)):
+                batch = EventBatch.from_events(buf, edge_bound=bound)
+            self._dispatch_block(batch, rounds)
             rounds += len(buf)
             buf = []
             if rounds % eval_every == 0:
@@ -737,9 +757,13 @@ class DecentralizedTrainer:
             active_sizes.append(ev.n_active)
             if self.trace:
                 self._trace.record_event(ev)
-            P, gm, rm, eta = self._event_operands(ev, self._etas(rounds))
-            self.W, self.S, self.y = self._step(
-                self.W, self.S, self.y, self._batches, P, gm, rm, eta)
+            with span("sim.dispatch", events=1) as counts:
+                if counts is not None:
+                    counts["worker_steps"] = int(np.count_nonzero(
+                        ev.grad_workers))
+                P, gm, rm, eta = self._event_operands(ev, self._etas(rounds))
+                self.W, self.S, self.y = self._step(
+                    self.W, self.S, self.y, self._batches, P, gm, rm, eta)
             if self.telemetry:
                 # the event's clock, then the lanes' raw completion clocks
                 # scattered over the event-time base
@@ -797,9 +821,10 @@ class DecentralizedTrainer:
             etas = self._etas(rounds + np.arange(E)).astype(np.float32)
             self._log.log("block_dispatch", mode="fused", events=E,
                           rounds=rounds)
-            carry, lock_free, comm, ys = self._pair_block(
-                carry, self._pools, times, lock_free, comm, factors, picks,
-                etas)
+            with span("sim.dispatch", events=E):
+                carry, lock_free, comm, ys = self._pair_block(
+                    carry, self._pools, times, lock_free, comm, factors,
+                    picks, etas)
             if self.telemetry or self.trace:
                 # the block's (t_ev, i, p, t_raw) streams stay on the
                 # device until the drain folds or fetches them
@@ -865,19 +890,21 @@ class DecentralizedTrainer:
                 want = min(want, max_events - rounds)
             if want <= 0:
                 break
-            chunk = stream.next_chunk(want)
+            with span("sim.events") as counts:
+                chunk = stream.next_chunk(want)
+                if chunk is not None:
+                    if chunk.E < want:  # finite custom stream ended mid-chunk
+                        exhausted = True
+                    tms = chunk.stream_times()
+                    if max_time is not None and tms[-1] > max_time:
+                        exhausted = True
+                        j = int(np.argmax(tms > max_time))
+                        chunk = chunk.head(j) if j else None
+                        tms = tms[:j]
+                if counts is not None:
+                    counts["events"] = chunk.E if chunk is not None else 0
             if chunk is None:
                 break
-            if chunk.E < want:  # finite custom stream ended mid-chunk
-                exhausted = True
-            tms = chunk.stream_times()
-            if max_time is not None and tms[-1] > max_time:
-                exhausted = True
-                j = int(np.argmax(tms > max_time))
-                if j == 0:
-                    break
-                chunk = chunk.head(j)
-                tms = tms[:j]
             comm += int(chunk.stream_copies().sum())
             active_sizes.extend(chunk.stream_n_active().tolist())
             t = float(tms[-1])
@@ -940,32 +967,34 @@ class DecentralizedTrainer:
         """Write history row ``i`` on the device: [loss, metric] and any
         ``extra`` (1,) columns (the fused mode's clock and copy count); the
         buffer doubles when full."""
-        row = torch.cat([self._eval_row(), *extra])
-        if i == eval_buf.shape[0]:
-            eval_buf = torch.cat([eval_buf, torch.zeros_like(eval_buf)])
-        eval_buf[i] = row
-        return eval_buf
+        with span("sim.eval"):
+            row = torch.cat([self._eval_row(), *extra])
+            if i == eval_buf.shape[0]:
+                eval_buf = torch.cat([eval_buf, torch.zeros_like(eval_buf)])
+            eval_buf[i] = row
+            return eval_buf
 
     def _finish(self, eval_buf, meta, k, t, comm, rounds,
                 active_sizes) -> RunResult:
-        eval_buf = self._record_eval(eval_buf, len(meta))
-        meta.append((k, t, comm,
-                     float(np.mean(active_sizes)) if active_sizes else 0.0))
-        vals = self._fetch_history(eval_buf, len(meta), rounds)
-        history = [
-            HistoryPoint(k=mk, time=mt, loss=float(vals[i, 0]),
-                         metric=float(vals[i, 1]), comm_param_copies=mc,
-                         n_active_mean=ma)
-            for i, (mk, mt, mc, ma) in enumerate(meta)]
-        trc = self._trace_summary()
-        tel = self._telemetry_summary(t)
-        self._log.log("run_end", rounds=rounds, t=t, comm=comm)
-        return RunResult(
-            algorithm=self.scheduler.name, history=history,
-            final_loss=history[-1].loss, final_metric=history[-1].metric,
-            total_events=rounds, total_time=t, total_comm_copies=comm,
-            param_count=self.param_count, bytes_per_scalar=self._itemsize,
-            telemetry=tel, trace=trc)
+        with span("sim.finish"):
+            eval_buf = self._record_eval(eval_buf, len(meta))
+            meta.append((k, t, comm,
+                         float(np.mean(active_sizes)) if active_sizes else 0.0))
+            vals = self._fetch_history(eval_buf, len(meta), rounds)
+            history = [
+                HistoryPoint(k=mk, time=mt, loss=float(vals[i, 0]),
+                             metric=float(vals[i, 1]), comm_param_copies=mc,
+                             n_active_mean=ma)
+                for i, (mk, mt, mc, ma) in enumerate(meta)]
+            trc = self._trace_summary()
+            tel = self._telemetry_summary(t)
+            self._log.log("run_end", rounds=rounds, t=t, comm=comm)
+            return RunResult(
+                algorithm=self.scheduler.name, history=history,
+                final_loss=history[-1].loss, final_metric=history[-1].metric,
+                total_events=rounds, total_time=t, total_comm_copies=comm,
+                param_count=self.param_count, bytes_per_scalar=self._itemsize,
+                telemetry=tel, trace=trc)
 
 
 def run_algorithms(

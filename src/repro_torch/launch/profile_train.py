@@ -13,8 +13,10 @@ window take minutes); the earlier ones pay the one-time costs.  Reports
 the steps' host-clock seconds, the profiled step's device busy and idle
 share, device time of the 15 kernels that take most and, by name, of the
 port's own kernels (the ``repro`` namespace of ``csrc/``), the number of
-device kernels launched and the step's peak device memory.  Needs a CUDA
-device.
+device kernels launched, the step's peak device memory, and the step's
+host spans (``spans``: each span name's count, total and self host
+seconds and counts in the profiled step, ``repro_torch.obs.spans``).
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.launch import train
+    from repro_torch.obs import spans
     from repro_torch.profiling import device_events, window_summary
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -57,6 +60,7 @@ def main(argv=None) -> int:
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         del summary["top_host_ms"]      # no host activity recorded
 
+    spans.clear()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=last, warmup=0, active=1, repeat=1),
                  on_trace_ready=on_trace_ready) as prof:
@@ -64,7 +68,8 @@ def main(argv=None) -> int:
                         on_step=on_step)
     out = {"device": torch.cuda.get_device_name(0),
            "argv": [*DEFAULTS, *rest, "--steps", str(args.steps)],
-           "step_s": seconds, "profiled": summary}
+           "step_s": seconds, "profiled": summary,
+           "spans": spans.summary(spans.records())}
     print(json.dumps(out, indent=1))
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

@@ -35,6 +35,11 @@ from ``torch.func``: ``torch.func`` cannot carry the rematerialisation's
 saved-tensor hooks (``models.layers.rematerialise``).  A worker's
 gradients are applied and freed before the next worker's are taken, so the
 peak holds one worker's gradients, not N.
+
+While a torch profiler runs, both train steps record host spans
+(:mod:`repro_torch.obs.spans`): ``train.step``, ``train.forward``,
+``train.backward`` and ``train.gossip``, and in the stacked step
+``train.worker`` and ``train.sgd``.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from repro_torch.launch.mesh import TrainAxes
 from repro_torch.launch.sharding import local_shard, placements
 from repro_torch.models.transformer import (decode_step, flat_params,
                                             init_model, lm_loss, prefill)
+from repro_torch.obs.spans import span
 
 Tree = Dict[str, torch.Tensor]
 f32 = torch.float32
@@ -137,16 +143,20 @@ def _tree_gossip(W: Tree, P: torch.Tensor,
     The kernel sums in float32 and rounds once; the reference sums the
     bf16 terms one rounded add at a time, so bf16 leaves agree within the
     bf16 bound, not bit for bit (float32 within the float32 tolerance)."""
-    Ps = {}
-    for k in list(W):
-        dt = W[k].dtype
-        if dt not in Ps:
-            Ps[dt] = P.to(device=W[k].device, dtype=dt)
-        out = gossip_mix(W[k], Ps[dt])
-        if on_mix is not None:
-            on_mix(k, W[k], out)
-        W[k] = out
-    return W
+    with span("train.gossip") as counts:
+        if counts is not None:      # each leaf read and written once
+            counts["bytes"] = sum(2 * w.numel() * w.element_size()
+                                  for w in W.values())
+        Ps = {}
+        for k in list(W):
+            dt = W[k].dtype
+            if dt not in Ps:
+                Ps[dt] = P.to(device=W[k].device, dtype=dt)
+            out = gossip_mix(W[k], Ps[dt])
+            if on_mix is not None:
+                on_mix(k, W[k], out)
+            W[k] = out
+        return W
 
 
 def worker_grad_fn(cfg: ModelConfig, *, microbatch: int = 1,
@@ -160,8 +170,12 @@ def worker_grad_fn(cfg: ModelConfig, *, microbatch: int = 1,
         b = {"tokens": tokens}
         if prefix is not None:
             b["prefix"] = prefix
-        loss = lm_loss(params, cfg, b, logit_chunk=logit_chunk, remat=remat)
-        return loss.detach(), list(torch.autograd.grad(loss, list(params.values())))
+        with span("train.forward"):
+            loss = lm_loss(params, cfg, b, logit_chunk=logit_chunk,
+                           remat=remat)
+        with span("train.backward"):
+            grads = list(torch.autograd.grad(loss, list(params.values())))
+        return loss.detach(), grads
 
     def worker_grad(params, tokens, prefix):
         if microbatch == 1:
@@ -209,19 +223,25 @@ def build_train_step(cfg: ModelConfig, n_workers: int, *, microbatch: int = 1,
     def train_step(W: Tree, batch, eta, gossip_w, on_mix=None):
         tokens = batch["tokens"]
         prefix = batch.get("prefix")
-        eta32 = torch.as_tensor(eta, dtype=f32).to(tokens.device)
-        losses = []
-        for i in range(n_workers):
-            params = {k: w[i].detach().requires_grad_() for k, w in W.items()}
-            loss, g = worker_grad(params, tokens[i],
-                                  prefix[i] if prefix is not None else None)
-            losses.append(loss)
-            del params
-            for j, w in enumerate(W.values()):
-                sgd_(w[i], g[j], eta32)
-                g[j] = None                      # free as we go
-        _tree_gossip(W, ring_matrix(n_workers, gossip_w, pods), on_mix)
-        return W, torch.stack(losses).mean()
+        with span("train.step", tokens=tokens.numel()):
+            eta32 = torch.as_tensor(eta, dtype=f32).to(tokens.device)
+            losses = []
+            per_worker = tokens.numel() // n_workers
+            for i in range(n_workers):
+                with span("train.worker", worker=i, tokens=per_worker):
+                    params = {k: w[i].detach().requires_grad_()
+                              for k, w in W.items()}
+                    loss, g = worker_grad(
+                        params, tokens[i],
+                        prefix[i] if prefix is not None else None)
+                    losses.append(loss)
+                    del params
+                    with span("train.sgd"):
+                        for j, w in enumerate(W.values()):
+                            sgd_(w[i], g[j], eta32)
+                            g[j] = None          # free as we go
+            _tree_gossip(W, ring_matrix(n_workers, gossip_w, pods), on_mix)
+            return W, torch.stack(losses).mean()
 
     return train_step
 
@@ -332,21 +352,25 @@ def build_sharded_train_step(cfg: ModelConfig, n_workers: int,
     def train_step(W: Tree, batch, eta, gossip_w):
         tokens = batch["tokens"]
         prefix = batch.get("prefix")
-        eta32 = torch.as_tensor(eta, dtype=f32).to(tokens.device)
-        params = {k: w.full_tensor().detach().requires_grad_()
-                  for k, w in W.items()}
-        loss, g = worker_grad(params, tokens, prefix)
-        del params
-        out = {}
-        for j, (k, w) in enumerate(W.items()):
-            shard = w.to_local().clone()
-            sgd_(shard, local_shard(g[j], sub, place[k]), eta32)
-            g[j] = None
-            out[k] = DTensor.from_local(mix(shard, gossip_w), sub, place[k],
-                                        run_check=False)
-        loss = loss.to(f32).clone()
-        dist.all_reduce(loss)
-        return out, loss / dist.get_world_size()
+        with span("train.step", tokens=tokens.numel()):
+            eta32 = torch.as_tensor(eta, dtype=f32).to(tokens.device)
+            params = {k: w.full_tensor().detach().requires_grad_()
+                      for k, w in W.items()}
+            loss, g = worker_grad(params, tokens, prefix)
+            del params
+            out = {}
+            for j, (k, w) in enumerate(W.items()):
+                shard = w.to_local().clone()
+                sgd_(shard, local_shard(g[j], sub, place[k]), eta32)
+                g[j] = None
+                with span("train.gossip",
+                          bytes=2 * shard.numel() * shard.element_size()):
+                    mixed = mix(shard, gossip_w)
+                out[k] = DTensor.from_local(mixed, sub, place[k],
+                                            run_check=False)
+            loss = loss.to(f32).clone()
+            dist.all_reduce(loss)
+            return out, loss / dist.get_world_size()
 
     return train_step
 

@@ -8,11 +8,13 @@ does) in the trainer mode ``--mode`` (``scan``, ``sparse_scan``,
 ``per_event`` or ``fused``; ``fused`` takes ``ad_psgd`` or ``agp``), runs ``--warm`` events to pay one-time costs, then times ``--events``
 more three ways: the host clock around the run (events/s), a
 ``torch.profiler`` window over the same run (device time per kernel, the
-device's busy and idle share of the window, host time per operator, and
-the launches: device kernels and copies in the window, per event and, for
+device's busy and idle share of the window, host time per operator, the
+launches: device kernels and copies in the window, per event and, for
 the active-set modes, per row -- a row launches ``sparse_gossip`` once per
-leaf) and a ``cProfile`` pass (host time per Python function).  Needs a
-CUDA device.
+leaf -- and the trainer's host spans, ``spans``: each span name's count,
+total and self host seconds and counts per event,
+``repro_torch.obs.spans``) and a ``cProfile`` pass (host time per Python
+function).  Needs a CUDA device.
 
 To count another tree's launches with this script, run it as a file with
 that tree's ``src`` first on the path:
@@ -55,6 +57,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.sparse_gossip import ops as sparse_ops
+    from repro_torch.obs import spans
     from repro_torch.profiling import device_events, window_summary
     from repro_torch.xp import build_trainer
     if not torch.cuda.is_available():
@@ -72,6 +75,7 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
 
     rows0 = sparse_ops.sparse_gossip_cuda.launches
+    spans.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         tr.run(max_events=args.events, eval_every=eval_every)
@@ -94,6 +98,7 @@ def main(argv=None) -> int:
         "launches": {"device_events": n_dev, "rows": rows,
                      "per_event": n_dev / args.events,
                      "per_row": n_dev / rows if rows else None},
+        "spans": spans.summary(spans.records(), per=args.events),
     }
     print(json.dumps(summary, indent=1))
     s = io.StringIO()
