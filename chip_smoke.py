@@ -168,6 +168,12 @@ waves' (B=4, T 2795 and 3561, GQA 48/8 and 56/8, dh=128, no window), and
 the audio and vlm prefills' (B=4, no window, bf16, each timed against
 SDPA's causal mask: musicgen MHA 32/32 at dh 64, T 3561 and 3817 with its
 prefix; llava GQA 32/8 at dh 128, T 3561 and 6441 with its prefix).
+The training attention's kernels (``swa_attention_train``: the forward
+with its log-sum-exp, and the backward's dQ, dK, dV) are held against
+their plain versions at minicpm-2b's layer (B=1, T=4096, MHA 36 at dh
+64), a GQA 32/8 at dh 128 with no window and a window of 2048, and a
+ragged T of 3561; the first two timed against SDPA's flash forward and
+forward + backward.
 Each full-width model is freed before the next phase.
 """
 from __future__ import annotations
@@ -217,6 +223,11 @@ SWA_EDGE_T, SWA_EDGE_WINDOWS = (127, 128, 129, 255, 257), (1, 127, 128, 129)
 SWA_EDGE_HEADS = ((1, 257, 6, 1, 128, 257), (2, 1000, 12, 2, 128, 129),
                   (1, 129, 7, 1, 128, 129), (1, 2795, 56, 8, 128, 2795),
                   (2, 300, 8, 8, 64, 300), (1, 1030, 32, 32, 64, 127))
+# the training attention (B, T, H, KV, dh, window): minicpm-2b's layer (the
+# benchmark's training cell), a qwen3-like GQA at dh 128, it with a window
+# of 2048, a ragged T; the first two timed against SDPA's flash kernels
+TRAIN_ATTN = ((1, 4096, 36, 36, 64, 4096), (1, 4096, 32, 8, 128, 4096),
+              (1, 4096, 32, 8, 128, 2048), (1, 3561, 36, 36, 64, 3561))
 SERVE_PADDED = (2795, 3561)                # phase 6's padded prompt lengths
 DENSE_ARCH = "qwen3-8b"                    # phase 16's model
 SWA_DENSE = (4, 4096, 32, 8, 128, 4096)   # its prefill: window = T (none)
@@ -972,6 +983,122 @@ def check_lm_kernels(device) -> list:
     return rows
 
 
+def check_train_attention(device) -> list:
+    """``swa_attention_train``'s kernels against their plain versions on
+    the same bf16 tensors at ``TRAIN_ATTN``'s shapes: the forward's output
+    (within 1e-2 of each entry or 2e-3 of the largest, plus 1e-5 of
+    float32 rounding) and log-sum-exp
+    (1e-3), then dQ, dK and dV from one output gradient (as the output).
+    Two rows a shape, "fwd" and "bwd"; the first two shapes are timed, the
+    library being SDPA (``is_causal``, flash) forward, and forward with
+    backward through ``torch.autograd.grad``, and ``blockwise_ms`` the path
+    the kernels replace (``models.layers.blockwise_attention`` with
+    ``remat``: its forward; its forward and backward).  Bounds: the forward's two
+    products and the backward's five, 2·dh FLOP a band pair each (the lo
+    passes and the backward's recomputation not counted)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.models import layers as L
+    from repro_torch.profiling import time_ms
+
+    def err(out, ref, what):
+        scale = float(ref.float().abs().max())
+        e = float((out.float() - ref.float()).abs().max())
+        require(torch.allclose(out.float(), ref.float(), rtol=1e-2,
+                               atol=2e-3 * scale + 1e-5),
+                f"swa_attention_train {what}: max abs err {e} (scale {scale})")
+        return e / scale
+
+    gen = torch.Generator().manual_seed(30)
+    bf = torch.bfloat16
+    rows = []
+    for i, (B, T, H, KV, dh, window) in enumerate(TRAIN_ATTN):
+        q = torch.randn(B, T, H, dh, generator=gen).to(device, bf)
+        k = torch.randn(B, T, KV, dh, generator=gen).to(device, bf)
+        v = torch.randn(B, T, KV, dh, generator=gen).to(device, bf)
+        dout = torch.randn(B, T, H, dh, generator=gen).to(device, bf)
+        out, lse = swa_ops.swa_attention_train_fwd_cuda(q, k, v, window=window)
+        ro, rl = swa_ops.swa_attention_train_plain(q, k, v, window=window)
+        grads = swa_ops.swa_attention_train_bwd_cuda(q, k, v, out, lse, dout,
+                                                     window=window)
+        refs = swa_ops.swa_attention_train_bwd_plain(q, k, v, out, lse, dout,
+                                                     window=window)
+        torch.cuda.synchronize()
+        lse_err = float((lse - rl).abs().max())
+        require(lse_err <= 1e-3, f"swa_attention_train lse: max abs err {lse_err}")
+        errs = dict(out=err(out, ro, "out"), lse_abs=lse_err,
+                    **{n: err(a, r, n) for n, a, r in zip(("dq", "dk", "dv"),
+                                                          grads, refs)})
+        del ro, rl, refs
+        pairs = B * H * band_pairs(T, window)
+        shape = dict(B=B, T=T, H=H, KV=KV, dh=dh, window=window,
+                     max_rel_err=errs)
+        nq, nk = q.numel() * 2, k.numel() * 2
+        fwd = dict(kernel="swa_attention_train", pass_="fwd", **shape)
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            2 * nq + 2 * nk + B * H * T * 4, 4.0 * pairs * dh, "bfloat16")
+        bwd = dict(kernel="swa_attention_bwd", pass_="bwd", **shape)
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+            5 * nq + 4 * nk + 2 * B * H * T * 4, 10.0 * pairs * dh, "bfloat16")
+        if i < 2:
+            g = H // KV
+            q4, k4, v4 = (t.transpose(1, 2).repeat_interleave(
+                H // t.shape[2], dim=1).contiguous() for t in (q, k, v))
+            d4 = dout.transpose(1, 2).contiguous()
+            r4 = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True)
+
+            def sdpa_both():
+                o = F.scaled_dot_product_attention(*r4, is_causal=True)
+                return torch.autograd.grad(o, r4, d4)
+
+            fwd.update(timings(
+                lambda: swa_ops.swa_attention_train_fwd_cuda(
+                    q, k, v, window=window), 20,
+                lambda: swa_ops.swa_attention_train_plain(
+                    q, k, v, window=window), 1, sdpa_fwd))
+            bwd.update(timings(
+                lambda: swa_ops.swa_attention_train_bwd_cuda(
+                    q, k, v, out, lse, dout, window=window), 20,
+                lambda: swa_ops.swa_attention_train_bwd_plain(
+                    q, k, v, out, lse, dout, window=window), 1, sdpa_both,
+                launches=2))
+            bwd["library"] = "SDPA forward + backward"
+            b3 = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def blockwise():
+                return L.blockwise_attention(*b3, window=window, remat=True)
+
+            fwd["blockwise_ms"] = time_ms(blockwise, 2)
+            bwd["blockwise_ms"] = time_ms(
+                lambda: torch.autograd.grad(blockwise(), b3, dout), 2)
+            del b3
+            print(f"[2] swa_attention_train bf16 B={B} T={T} H={H} KV={KV} "
+                  f"dh={dh} (GQA {g}): forward device {fwd['device_ms']:.4f} "
+                  f"ms / call {fwd['ms']:.4f} (bound {fwd['bound_ms']:.4f}, "
+                  f"plain {fwd['plain_ms']:.2f}, SDPA device "
+                  f"{fwd['library_device_ms']:.4f} / call "
+                  f"{fwd['library_ms']:.4f}); backward device "
+                  f"{bwd['device_ms']:.4f} ms / call {bwd['ms']:.4f} (bound "
+                  f"{bwd['bound_ms']:.4f}, plain {bwd['plain_ms']:.2f}, SDPA "
+                  f"forward + backward device {bwd['library_device_ms']:.4f} / "
+                  f"call {bwd['library_ms']:.4f}); blockwise_attention with "
+                  f"remat: forward {fwd['blockwise_ms']:.2f} ms, forward + "
+                  f"backward {bwd['blockwise_ms']:.2f} ms")
+            del q4, k4, v4, d4, r4
+        print(f"[2] swa_attention_train B={B} T={T} H={H} KV={KV} dh={dh} "
+              f"window={window}: relative errors " + ", ".join(
+                  f"{n} {e:.2e}" for n, e in errs.items()))
+        rows += [fwd, bwd]
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_prefill_kernels(device) -> list:
     """``swa_attention`` at the serve phases' prefill shapes, bf16, no
     window, B=4: each attention arch of phases 19-20 and 23-24 at both of
@@ -1040,7 +1167,9 @@ def _counted() -> dict:
             "sparse_gossip": sparse_ops.sparse_gossip_cuda,
             "scatter_rows": sparse_ops.scatter_rows_cuda,
             "linear_scan": scan_ops.linear_scan_cuda,
-            "swa_attention": swa_ops.swa_attention_cuda}
+            "swa_attention": swa_ops.swa_attention_cuda,
+            "swa_attention_train": swa_ops.swa_attention_train_fwd_cuda,
+            "swa_attention_bwd": swa_ops.swa_attention_train_bwd_cuda}
 
 
 def reset_counts():
@@ -2607,7 +2736,8 @@ def main() -> int:
     rows, part_s = [], {}
     for check in (check_kernels, check_mix_kernels, check_dense_bodies,
                   check_sequence_kernels, check_lm_kernels,
-                  check_prefill_kernels, train_mix_row):
+                  check_prefill_kernels, check_train_attention,
+                  train_mix_row):
         t1 = time.perf_counter()
         rows += check(device)
         part_s[check.__name__] = time.perf_counter() - t1

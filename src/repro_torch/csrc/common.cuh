@@ -36,6 +36,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x and y as two bf16 pairs, hi = bf16(x, y) and lo = bf16(x − hi, y − hi)
+// (x in the low half, as a tensor-core fragment holds a pair): hi + lo
+// keeps 16 of float32's 24 bits, so a product taken over hi and lo into
+// one float32 sum is float32-accurate where bf16(x) alone is not
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 __host__ __device__ constexpr long long ceil_div(long long a, long long b) {
   return (a + b - 1) / b;
 }

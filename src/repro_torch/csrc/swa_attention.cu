@@ -86,6 +86,22 @@
 // multiplies float32 P): about 2⁻⁹ relative on each weight, well inside the
 // bf16 output's own rounding.
 //
+// The training forward (swa_attention_train_bf16_launch) is the same kernel
+// with TRAIN set.  It replaces no TPU kernel: the reference trains through
+// repro/models/layers.py:blockwise_attention, plain jnp that XLA compiles,
+// with no Pallas kernel, and the port's copy of it op for op in eager
+// PyTorch issued ~4,300 launches a layer and worker a step (95 % of
+// minicpm-2b's training launches).  The forward writes each row's
+// log-sum-exp (m + log l, natural units, float32 (B, H, T)) for the
+// backward (swa_attention_bwd.cu), and keeps P in float32 as the blockwise
+// path multiplies it: each P fragment enters O += P·V as hi = bf16(P) and
+// lo = bf16(P − hi) into the same float32 accumulator (16 of P's 24 bits;
+// repro::split_bf16), so the product costs two passes.  At dh 128 the tile
+// is 64 keys, so that O, S and both P fragments stay within the
+// consumers' 240 registers.  Bound at minicpm-2b's shape (B=1, T=4096, 36
+// heads of 64, causal): two products of 3.87e10 FLOP, 0.078 ms at the bf16
+// peak, 0.117 with the lo pass.
+//
 // float32 operands keep the CUDA-core kernel of the first port (below,
 // namespace simt): the reduced model runs in float32 and holds card against
 // CPU to 1e-4, which bf16 tensor cores cannot meet.  One block of 256
@@ -320,13 +336,19 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int BAR_TURN = 1;
 constexpr int BAR_STORE = 3;
 
-template <int DH>
+// TRAIN is the training forward: P enters O += P·V as two bf16 parts and
+// each row's log-sum-exp is written
+template <int DH, bool TRAIN>
 struct Cfg {
-  static constexpr int BK = DH == 256 ? 64 : 128;   // keys a tile
-  static constexpr int STAGES = DH == 64 ? 3 : 2;   // slots of the K/V ring
+  // keys a tile: 128 at dh 64 and 128, 64 at dh 256; the training forward
+  // at dh 128 takes 64, where its second P fragment would leave O, S and P
+  // of a 128-key tile no room in 240 registers
+  static constexpr int BK = DH == 256 || (TRAIN && DH == 128) ? 64 : 128;
   static constexpr int NB = DH / 64;                // 64-column blocks of a row
   static constexpr int KBLK = BK * ROW;             // a column block of a K or V tile
   static constexpr int TILE = NB * KBLK;            // a K or V tile, bytes
+  static constexpr int STAGES = TILE <= 16384 ? 3 : 2;   // slots of the K/V ring
+  static constexpr int PF = TRAIN ? 2 : 1;          // bf16 parts of P: hi (+ lo)
   static constexpr int QWG = NB * QBLK;             // a warpgroup's 64 Q rows
   static constexpr int Q = 0;
   static constexpr int K = 2 * QWG;
@@ -534,14 +556,15 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int DH>
+template <int DH, bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_attention_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ CUtensorMap to, int Tn, int H,
-                     int n_groups, int window, float scale_log2) {
-  using C = Cfg<DH>;
+                     const __grid_constant__ CUtensorMap to,
+                     float* __restrict__ lse, int Tn, int H, int n_groups,
+                     int window, float scale_log2) {
+  using C = Cfg<DH, TRAIN>;
   constexpr int BK = C::BK, NB = C::NB, STAGES = C::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = repro::smem_addr(smem_raw);
@@ -624,7 +647,9 @@ swa_attention_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
   repro::fence_acc(o);
   float s[BK / 2];                   // S of one tile: (row0 + 8h, k0 + 8(i/4) + 2t + i%2)
-  uint32_t p[BK / 16][4];            // P of a tile, bf16 A fragments
+  // P of a tile, bf16 A fragments: keys 16kk .. 16kk + 15 at p[kk], and in
+  // training their lo parts at p[BK / 16 + kk]
+  uint32_t p[C::PF * (BK / 16)][4];
   float m[2] = {kMasked, kMasked};   // running max (within 8), log2 units
   float l[2] = {0.f, 0.f};           // this thread's part of the running sum
   float corr[2];                     // exp2 of the last change of m
@@ -643,11 +668,12 @@ swa_attention_kernel(const __grid_constant__ CUtensorMap tq,
                kd > 0);
     repro::wgmma_commit();
   };
-  auto issue_pv = [&](int it) {       // O += P·V of tile it
+  auto issue_pv = [&](int it) {       // O += P·V of tile it (hi, then lo)
     const uint32_t sV = base + C::V + (it % STAGES) * C::TILE;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs(o, p[kk], repro::sw128_desc(sV + kk * 16 * ROW, C::KBLK));
+    for (int f = 0; f < C::PF * (BK / 16); ++f)
+      wgmma_rs(o, p[f], repro::sw128_desc(sV + (f % (BK / 16)) * 16 * ROW,
+                                          C::KBLK));
     repro::wgmma_commit();
   };
   auto wait_k = [&](int it) {
@@ -727,10 +753,17 @@ swa_attention_kernel(const __grid_constant__ CUtensorMap tq,
     repro::fence_acc(o);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      if constexpr (TRAIN) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          repro::split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1],
+                            p[kk][j], p[BK / 16 + kk][j]);
+      } else {
+        p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
     }
     fence_frag(p);
     repro::fence_acc(s);
@@ -795,6 +828,11 @@ swa_attention_kernel(const __grid_constant__ CUtensorMap tq,
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
     inv[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+    // the row's natural log-sum-exp, m + log l (m is in log2 units)
+    const int row = row0 + 8 * hh;
+    if (TRAIN && t == 0 && row < Tn)
+      lse[(static_cast<long long>(b) * H + h) * Tn + row] =
+          (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * 0.6931471805599453f;
   }
   unsigned char* sO = smem + C::Q + wg * C::QWG;
 #pragma unroll
@@ -826,11 +864,11 @@ struct Strides {
   long long s[4][3];
 };
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Tn, int H, int KV, int window, float scale, const Strides& st,
-           cudaStream_t stream) {
-  using C = Cfg<DH>;
+template <int DH, bool TRAIN>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Tn, int H, int KV, int window, float scale,
+           const Strides& st, cudaStream_t stream) {
+  using C = Cfg<DH, TRAIN>;
   const void* base[4] = {q, k, v, out};
   const int heads[4] = {H, KV, KV, H};
   const cuuint32_t rows[4] = {64, C::BK, C::BK, 64};
@@ -848,13 +886,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   static std::atomic<bool> smem_set[repro::kMaxDevices];
   cudaError_t err = repro::smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(swa_attention_kernel<DH>),
+      smem_set,
+      reinterpret_cast<const void*>(swa_attention_kernel<DH, TRAIN>),
       C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(repro::ceil_div(Tn, BQ)),
                   static_cast<unsigned>(B * H));
-  swa_attention_kernel<DH><<<grid, THREADS, C::BYTES, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], Tn, H, H / KV, window,
+  swa_attention_kernel<DH, TRAIN><<<grid, THREADS, C::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, Tn, H, H / KV, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -864,11 +903,30 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* out,
               const Strides& st, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, out, B, Tn, H, KV, window, scale, st, stream);
+      return launch<64, false>(q, k, v, out, nullptr, B, Tn, H, KV, window,
+                               scale, st, stream);
     case 128:
-      return launch<128>(q, k, v, out, B, Tn, H, KV, window, scale, st, stream);
+      return launch<128, false>(q, k, v, out, nullptr, B, Tn, H, KV, window,
+                                scale, st, stream);
     case 256:
-      return launch<256>(q, k, v, out, B, Tn, H, KV, window, scale, st, stream);
+      return launch<256, false>(q, k, v, out, nullptr, B, Tn, H, KV, window,
+                                scale, st, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_train_dh(int dh, const void* q, const void* k, const void* v,
+                    void* out, float* lse, int B, int Tn, int H, int KV,
+                    int window, float scale, const Strides& st,
+                    cudaStream_t stream) {
+  switch (dh) {
+    case 64:
+      return launch<64, true>(q, k, v, out, lse, B, Tn, H, KV, window, scale,
+                              st, stream);
+    case 128:
+      return launch<128, true>(q, k, v, out, lse, B, Tn, H, KV, window, scale,
+                               st, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -907,4 +965,20 @@ extern "C" int swa_attention_bf16_launch(const void* q, const void* k,
   for (int i = 0; i < 12; ++i) st.s[i / 3][i % 3] = strides[i];
   return tc::launch_dh(dh, q, k, v, out, B, Tn, H, KV, window, scale, st,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The training forward, bfloat16: the same as swa_attention_bf16_launch
+// with P entering O += P·V as hi + lo bf16 parts, and each row's
+// log-sum-exp written to lse, (B, H, T) float32 contiguous; dh ∈ {64, 128}.
+extern "C" int swa_attention_train_bf16_launch(
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int Tn, int H, int KV, int dh, int window, float scale,
+    const long long* strides, void* stream) {
+  if (B * H > 65535 || KV < 1 || H % KV || window < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Strides st;
+  for (int i = 0; i < 12; ++i) st.s[i / 3][i % 3] = strides[i];
+  return tc::launch_train_dh(dh, q, k, v, out, static_cast<float*>(lse), B,
+                             Tn, H, KV, window, scale, st,
+                             static_cast<cudaStream_t>(stream));
 }

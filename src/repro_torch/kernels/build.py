@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("masked_gossip", "gossip_mix", "sparse_gossip", "scatter_rows",
-           "linear_scan", "swa_attention")
+           "linear_scan", "swa_attention", "swa_attention_bwd")
 HEADERS = ("common.cuh", "tf32_mix.cuh", "small_mix.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -151,10 +151,12 @@ def check_operands(what: str, floats: Mapping[str, torch.Tensor],
                    contiguous: bool = True) -> torch.device:
     """Validate a kernel launch's operands; return their common device.
 
-    No kernel has a backward (nor has any Pallas kernel of the reference),
-    so an operand that autograd or ``torch.func`` tracks raises first, on
-    any device: the kernel's output would silently stop requiring grad, or
-    ``data_ptr`` would fail on a functorch wrapper.  Then every operand
+    A kernel launch has no backward of its own (nor has any Pallas kernel
+    of the reference; the training attention's backward is a kernel its
+    ``torch.autograd.Function`` calls), so an operand that autograd or
+    ``torch.func`` tracks raises first, on any device: the kernel's output
+    would silently stop requiring grad, or ``data_ptr`` would fail on a
+    functorch wrapper.  Then every operand
     must be a CUDA tensor on one device; the float operands
     share one dtype the kernels take (float32 or bfloat16), the index
     operands are int32, and all are contiguous unless ``contiguous`` is
@@ -173,8 +175,8 @@ def check_operands(what: str, floats: Mapping[str, torch.Tensor],
             "grad or are torch.func wrappers), but the CUDA kernel has no "
             "backward, as the reference's Pallas kernel has none; a "
             "differentiable caller takes the training route (lm_loss: "
-            "blockwise_attention / _plain_attention and the chunked "
-            "rglru scan)")
+            "swa_attention_train, blockwise_attention / _plain_attention "
+            "and the chunked rglru scan)")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs every operand on one "

@@ -53,6 +53,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.launch.mesh import TrainAxes
 from repro_torch.launch.sharding import local_shard, placements
+from repro_torch.models.layers import ATTENTION_ROUTES
 from repro_torch.models.transformer import (decode_step, flat_params,
                                             init_model, lm_loss, prefill)
 from repro_torch.obs.spans import span
@@ -170,9 +171,13 @@ def worker_grad_fn(cfg: ModelConfig, *, microbatch: int = 1,
         b = {"tokens": tokens}
         if prefix is not None:
             b["prefix"] = prefix
-        with span("train.forward"):
+        with span("train.forward") as counts:
+            before = dict(ATTENTION_ROUTES) if counts is not None else None
             loss = lm_loss(params, cfg, b, logit_chunk=logit_chunk,
                            remat=remat)
+            if counts is not None:   # the attention calls of this lm_loss
+                counts.update({k: n - before[k]
+                               for k, n in ATTENTION_ROUTES.items()})
         with span("train.backward"):
             grads = list(torch.autograd.grad(loss, list(params.values())))
         return loss.detach(), grads

@@ -24,7 +24,12 @@ same causal, windowed function).  A caller that differentiates through
 attention -- ``lm_loss``, as the reference's training forward, which never
 reaches its Pallas kernel -- asks with ``plain=True`` for the reference's
 own choice: ``blockwise_attention`` past T = 2·512 (each q block
-rematerialised with ``remat=True``), ``_plain_attention`` below.
+rematerialised with ``remat=True``), ``_plain_attention`` below.  Past
+2·512, inputs the training kernels take (bf16 CUDA tensors of head width
+64 or 128, not under ``torch.func``) go to ``swa_attention_train`` instead,
+the same function as one forward and one backward kernel
+(``fused_attention_applies``); ``ATTENTION_ROUTES`` counts the calls of
+each route.
 Single-token decode against the rolling cache is plain PyTorch, as in the
 reference.  The reference's ``_SHARD_HINT`` is a TPU mesh hook for XLA's
 sharding propagation and is not ported, nor are (B, T) positions, which no
@@ -41,7 +46,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.kernels.swa_attention import swa_attention
+from repro_torch.kernels.swa_attention import (TRAIN_HEAD_DIMS, swa_attention,
+                                               swa_attention_train)
+
+# calls of the differentiable forward's attention by route, since the
+# process started: ``swa_attention_train``, ``blockwise_attention``,
+# ``_plain_attention`` (the training step adds each ``lm_loss``'s to its
+# ``train.forward`` span)
+ATTENTION_ROUTES = {"attn_fused": 0, "attn_blockwise": 0, "attn_plain": 0}
 
 
 def weight(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
@@ -308,6 +320,18 @@ def blockwise_attention(q, k, v, *, window: Optional[int] = None,
     return out[:, :T0].to(q.dtype)
 
 
+def fused_attention_applies(q: torch.Tensor) -> bool:
+    """Whether the training forward's attention of ``q`` (B, T, H, dh) past
+    T = 2·block goes to ``swa_attention_train``'s kernels: a bf16 CUDA
+    tensor of a head width they take, not a ``torch.func`` wrapper (the
+    simulator's ``vmap(grad)``, which an autograd.Function's kernels cannot
+    see through).  Everything else -- float32, the CPU, dh 256, torch.func
+    -- keeps ``blockwise_attention``."""
+    return (not torch._C._functorch.is_functorch_wrapped_tensor(q)
+            and q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[-1] in TRAIN_HEAD_DIMS)
+
+
 @dataclasses.dataclass
 class KVCache:
     """Rolling KV cache: ``size`` slots; absolute positions tracked per slot.
@@ -356,8 +380,11 @@ def apply_attention(p: Attention, cfg, x, positions, *,
     positions), or, with ``plain=True`` (the differentiable training
     forward), as the reference computes it: ``blockwise_attention`` when
     T > 2·block_size (its q blocks rematerialised with ``remat``), else
-    ``_plain_attention``; with ``build_cache=size`` also returns a rolling
-    KVCache of the last ``size`` positions.
+    ``_plain_attention``, and past 2·block_size inputs the training
+    kernels take (``fused_attention_applies``) go to
+    ``swa_attention_train``, which keeps no checkpoint of its own; with
+    ``build_cache=size`` also returns a rolling KVCache of the last
+    ``size`` positions.
     Decode: ``cache`` given and T == 1 -- writes the token at slot
     ``positions[0] % size`` (in place) and attends over the cache.
     Returns (out, cache).
@@ -374,11 +401,16 @@ def apply_attention(p: Attention, cfg, x, positions, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if plain and T > 2 * block_size:
+        if plain and T > 2 * block_size and fused_attention_applies(q):
+            ATTENTION_ROUTES["attn_fused"] += 1
+            out = swa_attention_train(q, k, v, window=window)
+        elif plain and T > 2 * block_size:
+            ATTENTION_ROUTES["attn_blockwise"] += 1
             out = blockwise_attention(q, k, v, window=window,
                                       block_q=block_size, block_k=block_size,
                                       remat=remat)
         elif plain:
+            ATTENTION_ROUTES["attn_plain"] += 1
             out = _plain_attention(q, k, v, positions, positions, window)
         else:
             out = swa_attention(q, k, v, window=window)

@@ -288,8 +288,10 @@ def _run_layers(m, cfg: ModelConfig, x, positions, *, states=None,
     build_cache = size → prefill: construct decode states
     neither            → plain forward
     ``train`` is the differentiable training forward of ``lm_loss``: the
-    reference's attention (``_plain_attention``, ``blockwise_attention``
-    past T = 1024) instead of the ``swa_attention`` kernel, and the
+    reference's attention (``_plain_attention``, past T = 1024
+    ``blockwise_attention`` or, for bf16 CUDA inputs at dh 64 / 128, the
+    training kernels of ``swa_attention_train``) instead of the prefill
+    ``swa_attention`` kernel, and the
     chunked ``rglru_train_scan`` instead of the ``linear_scan`` kernel.
     ``remat`` runs each layer under ``layers.rematerialise`` (the
     reference's ``jax.checkpoint`` per layer), and within it each of

@@ -48,14 +48,19 @@ span              where                                                 counts
 ``train.step``    ``build_train_step``'s and                            ``tokens``
                   ``build_sharded_train_step``'s ``train_step``
 ``train.worker``  one worker's body of the stacked step                 ``worker``, ``tokens``
-``train.forward`` ``lm_loss`` in ``worker_grad_fn``
+``train.forward`` ``lm_loss`` in ``worker_grad_fn``                     ``attn_fused``,
+                                                                        ``attn_blockwise``,
+                                                                        ``attn_plain``
 ``train.backward`` ``torch.autograd.grad`` there
 ``train.sgd``     one worker's ``sgd_`` over its leaves
 ``train.gossip``  ``_tree_gossip``; a leaf's ``mix`` (sharded)          ``bytes`` read and
                                                                         written
 ================  ====================================================  =====================
 
-``worker_steps`` counts the lanes that took a gradient; the ``per_event``
+``worker_steps`` counts the lanes that took a gradient; ``attn_*`` the
+``lm_loss`` call's attention layers by route
+(``models.layers.ATTENTION_ROUTES``: the training kernels, blockwise,
+materialised), the backward's recomputation not counted; the ``per_event``
 and ``fused`` paths record ``sim.run`` and ``sim.dispatch`` alone, a fused
 block with ``events`` only (its lanes are drawn on the device).  The
 benchmark's ``sim_event_gen_us_per_event``,

@@ -697,6 +697,129 @@ def test_swa_attention_refuses_strides_a_tensor_map_cannot_take(cuda):
     assert swa_ops.swa_attention_cuda.launches == before
 
 
+def _close_to_scale(out, ref, rtol=1e-2, frac=2e-3, floor=1e-5):
+    """bf16 results of one function summed in two orders: each entry within
+    ``rtol`` of the plain version's (a bf16 rounding apart) or ``frac`` of
+    its largest entry (float32 sums of many terms near zero), plus
+    ``floor``: float32 rounding of dP and D (terms of order √dh for unit
+    inputs), which is all that is left where the gradient is 0 (window 1:
+    each query sees only itself, so dS = P·(dP − D) vanishes)."""
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=frac * scale + floor)
+
+
+@pytest.mark.parametrize("B,Tn,H,KV,dh,w", [
+    (1, 4096, 36, 36, 64, 4096),   # minicpm-2b's layer: MHA, dh 64, causal
+    (1, 4096, 32, 8, 128, 4096),   # qwen3-like GQA 32/8 at dh 128
+    (1, 4096, 32, 8, 128, 2048),   # a window of 2048
+    (1, 3561, 36, 36, 64, 3561),   # ragged T
+    (1, 3561, 32, 8, 128, 3561),
+    # tile edges: 64-row tiles of the backward, 128/64-key tiles of the
+    # forward, windows inside one tile and across two, GQA 6, B = 2
+    (2, 257, 4, 2, 64, 129), (2, 100, 6, 1, 128, 37), (1, 65, 2, 2, 64, 1),
+    (2, 1030, 12, 2, 128, 1030)])
+def test_swa_attention_train_kernels_match_plain(cuda, B, Tn, H, KV, dh, w):
+    """The training forward's output and log-sum-exp, and dQ, dK, dV of the
+    backward from the same output's gradient, against the plain versions
+    on the same CUDA tensors; one launch a call each; the backward is
+    deterministic (two calls agree bit for bit) and the autograd function
+    gives the kernels' own results."""
+    g = torch.Generator().manual_seed(Tn + H + w)
+    bf = torch.bfloat16
+    q = torch.randn(B, Tn, H, dh, generator=g).to(cuda, bf)
+    k = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, bf)
+    v = torch.randn(B, Tn, KV, dh, generator=g).to(cuda, bf)
+    dout = torch.randn(B, Tn, H, dh, generator=g).to(cuda, bf)
+    fwd, bwd = (swa_ops.swa_attention_train_fwd_cuda.launches,
+                swa_ops.swa_attention_train_bwd_cuda.launches)
+    out, lse = swa_ops.swa_attention_train_fwd_cuda(q, k, v, window=w)
+    assert swa_ops.swa_attention_train_fwd_cuda.launches == fwd + 1
+    ro, rl = swa_ops.swa_attention_train_plain(q, k, v, window=w)
+    torch.cuda.synchronize()
+    _close_to_scale(out, ro)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=0)
+    grads = swa_ops.swa_attention_train_bwd_cuda(q, k, v, out, lse, dout,
+                                                 window=w)
+    assert swa_ops.swa_attention_train_bwd_cuda.launches == bwd + 1
+    refs = swa_ops.swa_attention_train_bwd_plain(q, k, v, out, lse, dout,
+                                                 window=w)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, refs):
+        _close_to_scale(a, r)
+    again = swa_ops.swa_attention_train_bwd_cuda(q, k, v, out, lse, dout,
+                                                 window=w)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+    o2 = swa_ops.swa_attention_train(qt, kt, vt, window=w)
+    assert torch.equal(o2, out)
+    assert all(torch.equal(a, b) for a, b in zip(
+        torch.autograd.grad(o2, (qt, kt, vt), dout), grads))
+    assert (swa_ops.swa_attention_train_fwd_cuda.launches,
+            swa_ops.swa_attention_train_bwd_cuda.launches) == (fwd + 2, bwd + 3)
+
+
+def test_swa_attention_train_refuses_what_it_cannot_launch(cuda):
+    """float32 and dh 256 raise on a CUDA tensor, before any launch."""
+    x = torch.zeros(1, 8, 2, 64, device=cuda)
+    y = torch.zeros(1, 8, 2, 256, device=cuda, dtype=torch.bfloat16)
+    before = swa_ops.swa_attention_train_fwd_cuda.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        swa_ops.swa_attention_train(x, x, x)
+    with pytest.raises(ValueError, match="head width"):
+        swa_ops.swa_attention_train(y, y, y)
+    assert swa_ops.swa_attention_train_fwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("minicpm-2b", {}),
+    ("qwen3-8b", {"n_kv_heads": 2, "d_head": 128})])
+def test_reduced_dense_lm_trains_through_the_training_kernels(cuda, arch, over):
+    """The reduced dense LM in bf16 at T = 1280 (attention past 2·512):
+    ``lm_loss`` with ``remat`` and its gradient on the card take the
+    training kernels on every layer (one forward launch a layer, one more
+    in the backward's recomputation, one backward launch), the same bf16
+    weights on the CPU take ``blockwise_attention``; the loss within
+    1e-3 and each leaf's gradient within 2e-2 of its norm (the bf16
+    tolerance of this file: the CPU rounds each q block's part of a
+    gradient to bf16, the kernels round once)."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16", **over)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(1, 1280)))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        ps = {k: v.to(dev).requires_grad_()
+              for k, v in T.flat_params(cpu).items()}
+        routes = dict(L.ATTENTION_ROUTES)
+        fwd, bwd = (swa_ops.swa_attention_train_fwd_cuda.launches,
+                    swa_ops.swa_attention_train_bwd_cuda.launches)
+        loss = T.lm_loss(ps, cfg, {"tokens": toks.to(dev)}, logit_chunk=256,
+                         remat=True)
+        taken = {k: n - routes[k] for k, n in L.ATTENTION_ROUTES.items()}
+        grads = torch.autograd.grad(loss, list(ps.values()))
+        n = cfg.n_layers
+        if dev.type == "cuda":
+            assert taken == {"attn_fused": n, "attn_blockwise": 0,
+                             "attn_plain": 0}
+            assert (swa_ops.swa_attention_train_fwd_cuda.launches - fwd,
+                    swa_ops.swa_attention_train_bwd_cuda.launches - bwd
+                    ) == (2 * n, n)
+        else:
+            assert taken == {"attn_fused": 0, "attn_blockwise": n,
+                             "attn_plain": 0}
+        res[dev.type] = (float(loss), dict(zip(ps, grads)))
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    for key, ref in gc.items():
+        err = float((gg[key].cpu().float() - ref.float()).norm())
+        assert err <= 2e-2 * float(ref.float().norm()), (key, err)
+
+
 def test_sequence_kernels_refuse_what_they_cannot_launch(cuda):
     x = torch.zeros(1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="head width"):

@@ -161,7 +161,9 @@ def test_recording_nests_parents_counts_and_cap(monkeypatch):
 
 def test_counts_of_the_work():
     """Sync DSGD: every worker takes a gradient each round; the step's
-    tokens; the gossip reads and writes every stacked leaf once."""
+    tokens; the gossip reads and writes every stacked leaf once; each
+    worker's forward counts its attention layers by route (T = 64: the
+    materialised scores, ``_plain_attention``)."""
     with spans.recording():
         sim_run(sim_trainer())
         W, _ = train_step_run()
@@ -180,6 +182,10 @@ def test_counts_of_the_work():
         2 * w.numel() * w.element_size() for w in W.values())
     workers = [r.counts["worker"] for r in recs if r.name == "train.worker"]
     assert workers == list(range(N_TRAIN))
+    assert total[("train.forward", "attn_plain")] == (
+        N_TRAIN * train_cfg().n_layers)
+    assert total[("train.forward", "attn_fused")] == 0
+    assert total[("train.forward", "attn_blockwise")] == 0
 
 
 @pytest.mark.parametrize("how", ["recording", "profiler"])

@@ -81,13 +81,27 @@ def _flat(tree):
 # blockwise attention and the training scan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("T_len,H,KV,window", [
+_ATTN_CASES = [
     (37, 4, 2, None),    # ragged T, GQA, causal frontier
     (37, 4, 2, 5),       # ragged T, a window inside one block
     (64, 2, 1, 13),      # whole blocks, a window across two
     (40, 6, 6, 17),      # MHA, ragged
-])
-def test_blockwise_attention_matches_the_reference(T_len, H, KV, window):
+]
+
+
+@pytest.mark.parametrize("T_len,H,KV,window,fused", [
+    pytest.param(*case, False, id="-".join(map(str, case)))
+    for case in _ATTN_CASES] + [
+    pytest.param(*case, True, id="fused-" + "-".join(map(str, case)))
+    for case in _ATTN_CASES])
+def test_blockwise_attention_matches_the_reference(T_len, H, KV, window,
+                                                   fused):
+    """``blockwise_attention`` (blocks of 8), and with ``fused`` the plain
+    version of the training kernels (``swa_attention_train`` on CPU
+    tensors: forward with the log-sum-exp, the backward from O, LSE and D,
+    P and dS split hi + lo), against the reference's blockwise attention
+    and ``jax.grad``; the fused version's gradients also against
+    ``blockwise_attention``'s autograd ones, and rematerialised."""
     rng = np.random.default_rng(T_len + H)
     q = rng.standard_normal((2, T_len, H, 8)).astype(np.float32)
     k = rng.standard_normal((2, T_len, KV, 8)).astype(np.float32)
@@ -99,8 +113,16 @@ def test_blockwise_attention_matches_the_reference(T_len, H, KV, window):
         return JL.blockwise_attention(q, k, v, window=window, block_q=8,
                                       block_k=8)
 
+    def blockwise(q, k, v):
+        return L.blockwise_attention(q, k, v, window=window, block_q=8,
+                                     block_k=8)
+
+    def attend(q, k, v):
+        return (swa_ops.swa_attention_train(q, k, v, window=window) if fused
+                else blockwise(q, k, v))
+
     qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
-    out = L.blockwise_attention(qt, kt, vt, window=window, block_q=8, block_k=8)
+    out = attend(qt, kt, vt)
     _close(out, ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     jg = jax.jit(jax.grad(lambda *a: (ref(*a) * w).sum(), argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -110,6 +132,60 @@ def test_blockwise_attention_matches_the_reference(T_len, H, KV, window):
     # it computes the plain attention's function
     pos = torch.arange(T_len)
     _close(out, L._plain_attention(qt, kt, vt, pos, pos, window))
+    if fused:
+        bg = torch.autograd.grad(
+            (blockwise(qt, kt, vt) * torch.as_tensor(w)).sum(), (qt, kt, vt))
+        for a, b in zip(tg, bg):
+            _close_grad(a, b)
+        rout = L.rematerialise(attend, qt, kt, vt)
+        rg = torch.autograd.grad((rout * torch.as_tensor(w)).sum(),
+                                 (qt, kt, vt))
+        for a, b in zip(rg, tg):
+            assert torch.equal(a, b)
+
+
+def _attn_cfg(dh, dtype):
+    import types
+    return types.SimpleNamespace(d_model=32, n_heads=4, n_kv_heads=2,
+                                 d_head=dh, qk_norm=False, rope_theta=1e4,
+                                 norm_eps=1e-6, pdtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["cpu_bf16", "float32", "dh256", "torch_func"])
+def test_apply_attention_keeps_blockwise_where_the_kernels_cannot_run(case):
+    """Past T = 2·block the training forward's attention takes the kernels
+    only for bf16 CUDA tensors of head width 64 or 128 outside torch.func:
+    a CPU bf16 tensor, float32, dh 256 and a torch.func wrapper keep
+    ``blockwise_attention``, with its values, and count as blockwise."""
+    dh, dt = {"cpu_bf16": (64, torch.bfloat16), "dh256": (256, torch.float32)
+              }.get(case, (64, torch.float32))
+    cfg = _attn_cfg(dh, dt)
+    p = L.Attention(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    x = torch.randn(1, 40, 32, generator=torch.Generator().manual_seed(1)
+                    ).to(dt)
+    pos = torch.arange(40)
+
+    def run(x):
+        return L.apply_attention(p, cfg, x, pos, plain=True, block_size=8)[0]
+
+    before = dict(L.ATTENTION_ROUTES)
+    if case == "torch_func":
+        out = torch.func.vmap(run)(x[None])[0]
+        assert torch.func.grad(lambda x: run(x).float().sum())(x).shape == x.shape
+        calls = 2
+    else:
+        out = run(x)
+        calls = 1
+    assert {k: n - before[k] for k, n in L.ATTENTION_ROUTES.items()} == {
+        "attn_fused": 0, "attn_blockwise": calls, "attn_plain": 0}
+    B, T = x.shape[:2]
+    q = L.apply_rope((x @ p.wq).reshape(B, T, 4, dh), pos, cfg.rope_theta)
+    k = L.apply_rope((x @ p.wk).reshape(B, T, 2, dh), pos, cfg.rope_theta)
+    v = (x @ p.wv).reshape(B, T, 2, dh)
+    ref = L.blockwise_attention(q, k, v, block_q=8, block_k=8)
+    torch.testing.assert_close(out, ref.reshape(B, T, -1) @ p.wo, atol=0,
+                               rtol=0)
+    assert not L.fused_attention_applies(q)
 
 
 @pytest.mark.parametrize("T_len", [3 * 256, 100])
@@ -240,13 +316,18 @@ def _wrapper_calls(x2, ix):
         "linear_scan": lambda: scan_ops.linear_scan_cuda(x2[None], x2[None]),
         "swa_attention": lambda: swa_ops.swa_attention_cuda(
             x2[None], x2[None], x2[None], window=2),
+        "swa_attention_train": lambda: swa_ops.swa_attention_train_fwd_cuda(
+            x2[None, :, None], x2[None, :, None], x2[None, :, None], window=2),
+        "swa_attention_bwd": lambda: swa_ops.swa_attention_train_bwd_cuda(
+            *(x2[None, :, None],) * 5, x2[None, None, :, 0], window=2),
     }
 
 
 @pytest.mark.parametrize("kernel", ["masked_gossip", "gossip_mix",
                                     "gossip_mix_batched", "sparse_gossip",
                                     "scatter_rows", "linear_scan",
-                                    "swa_attention"])
+                                    "swa_attention", "swa_attention_train",
+                                    "swa_attention_bwd"])
 def test_cuda_wrappers_refuse_operands_that_require_grad(kernel):
     """On CPU tensors the refusal comes before the device check: a
     differentiable caller learns that the kernel has no backward, not that
